@@ -4,6 +4,11 @@ Mirrors ``gpsig_tpu/config.py``: a default float type for newly built
 parameters and the jitter added to diagonals before Cholesky and level
 normalization.  Computations follow the dtype of the tensors they are given.
 
+It also holds the default device of newly built modules: the card
+(``cuda``) unless ``set_default_device`` says otherwise.  Nothing falls
+back to the CPU: on a machine without a card, building a module without
+``device="cpu"`` raises torch's own CUDA error.
+
 It is also the one place that pins full-f32 matrix products on the card.
 The JAX package pins ``Precision.HIGHEST`` for every base-kernel contraction
 (``gpsig_tpu/ops/base_kernels.py:24-30``) because GP numerics do not survive
@@ -27,6 +32,8 @@ class NumericsConfig:
     default_float: torch.dtype | None = None
     #: jitter added to diagonals before Cholesky / normalization
     jitter: float = 1e-6
+    #: device of newly built parameters
+    default_device: torch.device = torch.device("cuda")
 
 
 _CONFIG = NumericsConfig()
@@ -48,3 +55,11 @@ def set_default_float(dtype: torch.dtype) -> None:
 
 def set_jitter(value: float) -> None:
     _CONFIG.jitter = float(value)
+
+
+def default_device() -> torch.device:
+    return _CONFIG.default_device
+
+
+def set_default_device(device) -> None:
+    _CONFIG.default_device = torch.device(device)

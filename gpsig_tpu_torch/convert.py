@@ -5,6 +5,9 @@ unchanged: ``load_jax_params`` copies each leaf of a ``gpsig_tpu``
 ``SVGP.init_params()``-layout tree (numpy or JAX arrays; it only calls
 ``numpy.asarray`` on them) into the parameter of the same name, keeping the
 module's dtype and device; ``to_numpy_tree`` gives the tree back.
+``named_leaves`` names each parameter by its ``/``-joined JAX path
+(``kern/variances``, ``ind/Z``, ``q_sqrt``), the names that
+``training``'s masks and optimizers select on.
 """
 
 from __future__ import annotations
@@ -13,13 +16,20 @@ import numpy as np
 import torch
 
 
-def _leaves(model) -> dict:
-    """{path: parameter} in the JAX pytree layout."""
-    out = {("kern", n): p for n, p in model.kern.named_parameters()}
-    out.update({("ind", n): p for n, p in model.ind.named_parameters()})
-    out[("q_mu",)] = model.q_mu
-    out[("q_sqrt",)] = model.q_sqrt
+def named_leaves(model) -> dict:
+    """{'/'-joined JAX path: parameter} of an SVGP, e.g. ``kern/variances``,
+    ``ind/Z``, ``q_mu``."""
+    out = {f"kern/{n}": p for n, p in model.kern.named_parameters()}
+    out.update({f"ind/{n}": p for n, p in model.ind.named_parameters()})
+    out["q_mu"] = model.q_mu
+    out["q_sqrt"] = model.q_sqrt
     return out
+
+
+def _leaves(model) -> dict:
+    """{path tuple: parameter} in the JAX pytree layout."""
+    return {tuple(name.split("/")): p
+            for name, p in named_leaves(model).items()}
 
 
 def _flatten(tree, prefix=()) -> dict:
@@ -59,5 +69,6 @@ def to_numpy_tree(model) -> dict:
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = param.detach().cpu().numpy()
+        # a copy: on the CPU, .numpy() would share the parameter's memory
+        node[path[-1]] = param.detach().cpu().numpy().copy()
     return tree

@@ -1,7 +1,8 @@
 // Device math shared by the inducing-covariance kernels (kzz_fwd.cu,
-// kzx_fwd.cu): the cancellation-free slot-Gram algebra of
-// gpsig_tpu/ops/inducing_pallas.py (_slot_gram_zz :153, _slot_gram_zx :554)
-// on norm-augmented value/difference vectors.
+// kzz_bwd.cu, kzx_fwd.cu, kzx_bwd.cu): the cancellation-free slot-Gram
+// algebra of gpsig_tpu/ops/inducing_pallas.py (_slot_gram_zz :153,
+// _slot_gram_zz_bwd :175, _slot_gram_zx :554, _slot_gram_zx_bwd :604) on
+// norm-augmented value/difference vectors.
 //
 // Transcendentals: CUDA's accurate expf (max 2 ulp) and expm1f (max 1 ulp),
 // never the __expf intrinsic -- the library is built without
@@ -54,6 +55,76 @@ __device__ __forceinline__ float slot_gram_zx(float a0, float dza, float da0,
   }
   if (difference) return expf(a0) * expm1f(da0);
   return expf(a0);
+}
+
+// slot_gram_zz and its partials p = dG/d(a00, d01, d10, dxx) in one pass;
+// the backward weights of _slot_gram_zz_bwd are the slot cotangent times p
+// (W_A00, W_d01, W_d10, W_dxx).  Returns G.
+__device__ __forceinline__ float slot_gram_zz_partials(float a00, float d01,
+                                                       float d10, float dxx,
+                                                       int base,
+                                                       bool increments,
+                                                       float p[4]) {
+  p[0] = p[1] = p[2] = p[3] = 0.f;
+  if (base == kLinear) {
+    p[increments ? 3 : 0] = 1.f;
+    return increments ? dxx : a00;
+  }
+  const float ea = expf(a00);
+  if (!increments) {
+    p[0] = ea;
+    return ea;
+  }
+  const float es = expm1f(d01 + d10 + dxx);
+  const float e01 = expm1f(d01), e10 = expm1f(d10);
+  const float g = ea * (es - e01 - e10);
+  p[0] = g;
+  p[1] = ea * (es - e01);
+  p[2] = ea * (es - e10);
+  p[3] = ea * (es + 1.f);
+  return g;
+}
+
+// slot_gram_zx and its partials p = dG/d(a0, dza, da0, dda) in one pass;
+// the backward weights of _slot_gram_zx_bwd are the slot cotangent times p
+// (W_A0, W_dZA, W_dA0, W_ddA).  Returns G.
+__device__ __forceinline__ float slot_gram_zx_partials(float a0, float dza,
+                                                       float da0, float dda,
+                                                       int base,
+                                                       bool increments,
+                                                       bool difference,
+                                                       float p[4]) {
+  p[0] = p[1] = p[2] = p[3] = 0.f;
+  if (base == kLinear) {
+    const int which = (increments ? 1 : 0) + (difference ? 2 : 0);
+    p[which] = 1.f;
+    return which == 3 ? dda : which == 2 ? da0 : which == 1 ? dza : a0;
+  }
+  const float ea = expf(a0);
+  if (increments && difference) {
+    const float edz = expf(dza);
+    const float em1s = expm1f(da0 + dda), em1d = expm1f(da0);
+    const float g = ea * (edz * em1s - em1d);
+    p[0] = g;
+    p[1] = ea * edz * em1s;
+    p[2] = ea * (edz * (em1s + 1.f) - (em1d + 1.f));
+    p[3] = ea * edz * (em1s + 1.f);
+    return g;
+  }
+  if (increments) {
+    const float em1z = expm1f(dza);
+    p[0] = ea * em1z;
+    p[1] = ea * (em1z + 1.f);
+    return p[0];
+  }
+  if (difference) {
+    const float em1d = expm1f(da0);
+    p[0] = ea * em1d;
+    p[2] = ea * (em1d + 1.f);
+    return p[0];
+  }
+  p[0] = ea;
+  return ea;
 }
 
 }  // namespace gpsig

@@ -33,6 +33,8 @@ class InducingTensors(nn.Module):
     Args:
       Z: ``(len_tensors, num_tensors, d)`` or, with ``increments``,
         ``(len_tensors, num_tensors, 2, d)``.
+      dtype, device: where the parameters live; ``device`` defaults to
+        ``config.default_device()``, the card.
     """
 
     def __init__(self, Z, num_levels: int, increments: bool = False,
@@ -62,6 +64,7 @@ class InducingTensors(nn.Module):
 
     def init_params(self, dtype=None, device=None) -> dict:
         dtype = dtype or cfg.default_float()
+        device = device or cfg.default_device()
         params = {"Z": torch.as_tensor(self._Z_init, dtype=dtype,
                                        device=device)}
         if self.learn_weights:

@@ -57,7 +57,8 @@ class SignatureKernel(nn.Module):
     """Truncated signature covariance over sequences.
 
     Args mirror ``gpsig_tpu.kernels.SignatureKernel``; ``dtype`` and
-    ``device`` place the parameters.  ``fused`` selects the covariance path
+    ``device`` place the parameters (``device`` defaults to
+    ``config.default_device()``, the card).  ``fused`` selects the covariance path
     ('auto' | 'on' | 'off', see the module docstring); ``fast_math`` is
     accepted for the JAX signature and means full f32 at every value.
     """
@@ -117,6 +118,7 @@ class SignatureKernel(nn.Module):
         """Fresh raw (unconstrained) parameters, as the JAX pytree holds
         them."""
         dtype = dtype or cfg.default_float()
+        device = device or cfg.default_device()
         raw = {
             "variances": pm.raw_init(self._init_variances, "positive", dtype,
                                      device),

@@ -1,11 +1,11 @@
 """MultiClass likelihood with the RobustMax inverse link
-(``gpsig_tpu/likelihoods.py::MultiClass``), for prediction.
+(``gpsig_tpu/likelihoods.py::MultiClass``), for prediction and training.
 
 p(y=c|f) = 1-eps if c == argmax(f) else eps/(C-1); p(argmax f = c) is
-evaluated by 1-D Gauss-Hermite quadrature over each candidate latent, with
+evaluated by 1-D Gauss-Hermite quadrature over the candidate latent, with
 100 points by default (the JAX package's documented divergence from
-GPflow's 20).  ``variational_expectations`` and the Gaussian and Bernoulli
-likelihoods come with the training slice (ROADMAP Queue 1, item 1).
+GPflow's 20).  Labels ``Y`` are ``(N, 1)`` class indices.  The Gaussian and
+Bernoulli likelihoods are not ported yet (ROADMAP Queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -34,6 +34,37 @@ class MultiClass(nn.Module):
         self.num_classes = int(num_classes)
         self.epsilon = float(epsilon)
         self.num_gh = int(num_gh)
+
+    def _prob_is_largest(self, Y, Fmu, Fvar):
+        """(N,) p(argmax f = y) for each row's own label."""
+        gh_x, gh_w = _gh_points(self.num_gh, Fmu.dtype, Fmu.device)
+        oh = torch.nn.functional.one_hot(
+            Y[:, 0].long(), self.num_classes).to(Fmu.dtype)  # (N, C)
+        mu_sel = torch.sum(oh * Fmu, dim=1)
+        var_sel = torch.sum(oh * Fvar, dim=1)
+        X = mu_sel[:, None] + gh_x[None, :] * torch.sqrt(
+            torch.clamp(2.0 * var_sel, min=1e-10))[:, None]  # (N, G)
+        dist = (X[:, :, None] - Fmu[:, None, :]) / torch.sqrt(
+            torch.clamp(Fvar[:, None, :], min=1e-10))  # (N, G, C)
+        cdfs = _normal_cdf(dist) * (1.0 - 2e-4) + 1e-4
+        # the selected latent contributes a factor of 1
+        cdfs = cdfs * (1.0 - oh)[:, None, :] + oh[:, None, :]
+        probs = torch.prod(cdfs, dim=2)  # (N, G)
+        return probs @ (gh_w / math.sqrt(math.pi))
+
+    def variational_expectations(self, Fmu, Fvar, Y):
+        """(N, 1) E_q[log p(y|f)] under the RobustMax link."""
+        p = self._prob_is_largest(Y, Fmu, Fvar)
+        eps = self.epsilon
+        ve = p * math.log(1.0 - eps) + (1.0 - p) * math.log(
+            eps / (self.num_classes - 1))
+        return ve[:, None]
+
+    def predict_log_density(self, Fmu, Fvar, Y):
+        """(N,) log p(y*|x*) under the predictive."""
+        p = self._prob_is_largest(Y, Fmu, Fvar)
+        return torch.log(p * (1.0 - self.epsilon) + (1.0 - p) * (
+            self.epsilon / (self.num_classes - 1)))
 
     def _prob_is_largest_all(self, Fmu, Fvar):
         """(N, C) p(argmax f = c) for every class in one (N, C, G, C)

@@ -1,6 +1,6 @@
-"""GP linear algebra: the sparse conditional (``gpsig_tpu/linalg.py``).
-
-``gauss_kl`` comes with the training slice (ROADMAP Queue 1, item 1).
+"""GP linear algebra (``gpsig_tpu/linalg.py``): the sparse conditional and
+the Gaussian KL of the ELBO.  Cholesky factors and triangular solves go to
+``torch.linalg``, whose backward is torch autograd.
 """
 
 from __future__ import annotations
@@ -56,3 +56,40 @@ def base_conditional(Kmn, Kmm, Knn, f, *, q_sqrt=None, white: bool = False,
     else:
         fvar = fvar.T  # (N, P)
     return fmean, fvar
+
+
+def gauss_kl(q_mu, q_sqrt, K=None):
+    """KL[q(u) || p(u)] for q = N(q_mu, q_sqrt q_sqrt^T).
+
+    p(u) = N(0, I) if K is None (the whitened case), else N(0, K).
+
+    Args:
+      q_mu: (M, P); q_sqrt: (M, P) diagonal or (P, M, M) lower.
+    """
+    M, P = q_mu.shape
+    diag = q_sqrt.ndim == 2
+    if diag:
+        logdet_q = torch.sum(torch.log(torch.square(q_sqrt)))
+    else:
+        Lq = torch.tril(q_sqrt)
+        logdet_q = 2.0 * torch.sum(torch.log(torch.abs(
+            torch.diagonal(Lq, dim1=-2, dim2=-1))))
+
+    if K is None:
+        mahalanobis = torch.sum(torch.square(q_mu))
+        trace = torch.sum(torch.square(q_sqrt if diag else Lq))
+        return 0.5 * (mahalanobis + trace - M * P - logdet_q)
+
+    L = torch.linalg.cholesky(K)
+    alpha = torch.linalg.solve_triangular(L, q_mu, upper=False)  # (M, P)
+    mahalanobis = torch.sum(torch.square(alpha))
+    logdet_p = 2.0 * P * torch.sum(torch.log(torch.diagonal(L)))
+    if diag:
+        eye = torch.eye(M, dtype=K.dtype, device=K.device)
+        Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+        trace = torch.sum(torch.square(q_sqrt)
+                          * torch.sum(torch.square(Linv), dim=0)[:, None])
+    else:
+        LiLq = torch.linalg.solve_triangular(L[None], Lq, upper=False)
+        trace = torch.sum(torch.square(LiLq))
+    return 0.5 * (mahalanobis + trace - M * P - logdet_q + logdet_p)

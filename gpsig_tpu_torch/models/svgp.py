@@ -1,4 +1,4 @@
-"""Sparse variational GP with signature covariances, for prediction.
+"""Sparse variational GP with signature covariances: the ELBO and prediction.
 
 The port of ``gpsig_tpu/models/svgp.py``.  Parameters live on the
 submodules under the JAX pytree's names::
@@ -6,8 +6,10 @@ submodules under the JAX pytree's names::
     kern.{variances, sigma, lengthscales}   ind.{Z, [W]}
     q_mu (M, P)                             q_sqrt (P, M, M), or (M, P) if q_diag
 
-The ELBO and its KL term come with the training slice (ROADMAP Queue 1,
-item 1); full predictive covariances need the seq x seq kernel (item 3).
+``loss`` (the negative ELBO) is what ``training.optimize`` minimizes; its
+gradients reach Kzz and Kzx through the kernels' autograd Functions
+(``ops/inducing_cuda.py``).  Full predictive covariances need the seq x seq
+kernel (ROADMAP Queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -16,13 +18,14 @@ import torch
 from torch import nn
 
 from .. import config as cfg
-from ..linalg import base_conditional
+from ..linalg import base_conditional, gauss_kl
 
 
 class SVGP(nn.Module):
     """Sparse variational GP, whitened by default.
 
-    ``dtype`` / ``device`` default to those of the inducing tensors."""
+    ``dtype`` defaults to the inducing tensors' and ``device`` to
+    ``config.default_device()``, the card."""
 
     def __init__(self, kern, ind, likelihood, *, num_latent: int,
                  num_data: int | None = None, whiten: bool = True,
@@ -40,7 +43,7 @@ class SVGP(nn.Module):
         self.whiten = bool(whiten)
         self.q_diag = bool(q_diag)
         dtype = dtype or ind.Z.dtype
-        device = device or ind.Z.device
+        device = device or cfg.default_device()
         for name, value in self._init_q(dtype, device).items():
             self.register_parameter(name, nn.Parameter(value))
 
@@ -57,6 +60,7 @@ class SVGP(nn.Module):
     def init_params(self, dtype=None, device=None) -> dict:
         """Fresh raw parameters in the JAX pytree layout."""
         dtype = dtype or cfg.default_float()
+        device = device or cfg.default_device()
         return {"kern": self.kern.init_params(dtype, device),
                 "ind": self.ind.init_params(dtype, device),
                 **self._init_q(dtype, device)}
@@ -64,18 +68,48 @@ class SVGP(nn.Module):
     def _q_sqrt(self):
         return self.q_sqrt if self.q_diag else torch.tril(self.q_sqrt)
 
-    def predict_f(self, X, *, full_cov: bool = False):
-        """q(f*) mean and variance at new sequences, (N, P) each."""
+    def predict_f(self, X, *, full_cov: bool = False,
+                  return_Kzz: bool = False):
+        """q(f*) mean and variance at new sequences, (N, P) each, and the
+        jittered Kzz with ``return_Kzz``."""
         if full_cov:
             raise NotImplementedError(
                 "full_cov=True needs the seq x seq kernel (K5): ROADMAP "
                 "Queue 1, item 3")
         Kzz, Kzx, Kxx = self.ind.Kuu_Kuf_Kff(
             self.kern, X, jitter=cfg.jitter(), full_f_cov=False)
-        return base_conditional(Kzx, Kzz, Kxx, self.q_mu,
-                                q_sqrt=self._q_sqrt(), white=self.whiten)
+        fmean, fvar = base_conditional(Kzx, Kzz, Kxx, self.q_mu,
+                                       q_sqrt=self._q_sqrt(),
+                                       white=self.whiten)
+        if return_Kzz:
+            return fmean, fvar, Kzz
+        return fmean, fvar
+
+    def elbo(self, X, Y):
+        """Evidence lower bound on a (mini)batch.
+
+        ``num_data`` (the total N) scales the expected-likelihood term for
+        minibatching; it defaults to the batch size."""
+        batch = X.shape[0]
+        if self.whiten:
+            fmean, fvar = self.predict_f(X)
+            KL = gauss_kl(self.q_mu, self._q_sqrt())
+        else:
+            fmean, fvar, Kzz = self.predict_f(X, return_Kzz=True)
+            KL = gauss_kl(self.q_mu, self._q_sqrt(), K=Kzz)
+        var_exp = self.likelihood.variational_expectations(fmean, fvar, Y)
+        num_data = self.num_data if self.num_data is not None else batch
+        return torch.sum(var_exp) * (num_data / batch) - KL
+
+    def loss(self, X, Y):
+        return -self.elbo(X, Y)
 
     def predict_y(self, X):
         """Predictive mean and variance of observables."""
         fmean, fvar = self.predict_f(X)
         return self.likelihood.predict_mean_and_var(fmean, fvar)
+
+    def predict_log_density(self, X, Y):
+        """log p(Y*|X*) under the predictive (nlpp = -mean of this)."""
+        fmean, fvar = self.predict_f(X)
+        return self.likelihood.predict_log_density(fmean, fvar, Y)

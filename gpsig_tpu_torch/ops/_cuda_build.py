@@ -2,7 +2,8 @@
 
 The ``.cu`` sources under ``gpsig_tpu_torch/csrc/`` are compiled by ``nvcc``
 for Hopper (``sm_90a``) into one shared library with a plain C interface,
-loaded with ``ctypes``.  The build runs at first use, into
+loaded with ``ctypes``: one ``nvcc -c`` for each source, all started
+together, then one link.  The build runs at first use, into
 ``build/kernels/<hash>/`` beside the package (listed in ``.gitignore``),
 keyed by a hash of the sources and flags, so a fresh checkout builds itself
 and an unchanged one reuses its library.  ``ptxas -v`` output (registers,
@@ -25,11 +26,10 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_SOURCES = ("kzz_fwd.cu", "kzx_fwd.cu")
+_SOURCES = ("kzz_fwd.cu", "kzz_bwd.cu", "kzx_fwd.cu", "kzx_bwd.cu")
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +40,12 @@ _SIGNATURES = {
     # vl, dl, xv, xd, out, lt, nz, n_ex, L, d2, num_levels, base,
     # increments, difference, stream
     "gpsig_kzx_fwd": [_P] * 5 + [_I] * 9 + [_P],
+    # vl, dl, vr, dr, ct, out, lt, nz, d2, num_levels, base, increments,
+    # splits, tiles_per_split, stream
+    "gpsig_kzz_bwd": [_P] * 6 + [_I] * 8 + [_P],
+    # vl, dl, xv, xd, ct, gz, gx, ck, lt, nz, n_ex, L, d2, num_levels,
+    # base, increments, difference, t_chunk, stream
+    "gpsig_kzx_bwd": [_P] * 8 + [_I] * 10 + [_P],
 }
 
 
@@ -72,6 +78,24 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds) -> str:
+    """Run the commands in parallel and wait for all; raise if any failed.
+    Returns their joined output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    outputs, failed = [], []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        outputs.append(out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(outputs)
+
+
 def build() -> tuple[Path, str]:
     """Compile the kernels unless this source hash is built already.
     Returns (library path, ptxas report)."""
@@ -81,16 +105,12 @@ def build() -> tuple[Path, str]:
     if lib_path.exists() and report_path.exists():
         return lib_path, report_path.read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libgpsig_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(_CSRC / s) for s in _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    report = proc.stdout + proc.stderr
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [out_dir / f"{Path(src).stem}.{tag}.o" for src in _SOURCES]
+    report = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(_CSRC / src)]
+                   for src, obj in zip(_SOURCES, objs)])
+    tmp = out_dir / f"libgpsig_kernels.{tag}.so"
+    _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     report_path.write_text(report)
     os.replace(tmp, lib_path)
     return lib_path, report

@@ -11,7 +11,10 @@ import torch
 
 
 def cumsum_exclusive(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Exclusive cumulative sum along ``dim``."""
+    """Exclusive cumulative sum along ``dim`` (an empty axis stays empty:
+    a one-step sequence has no increments)."""
+    if x.shape[dim] == 0:
+        return x
     out = torch.cumsum(x, dim=dim)
     return torch.cat(
         [torch.zeros_like(out.narrow(dim, 0, 1)),

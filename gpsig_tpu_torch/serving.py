@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from . import config as cfg
+
 
 def _pad_batch(X: torch.Tensor, batch: int, seq_len: int) -> torch.Tensor:
     """Pad (n, l, d) observations to (batch, seq_len, d) by repeating the
@@ -54,8 +56,8 @@ class Predictor:
       max_len: shorthand for ``len_buckets=(max_len,)``.
       len_buckets: ascending padded sequence lengths.
       batch_buckets: ascending padded batch sizes.
-      device: where prediction runs, e.g. ``"cuda"``; defaults to the
-        model's device.
+      device: where prediction runs; defaults to
+        ``config.default_device()``, the card.
       dtype: working float type; defaults to the model's.
     """
 
@@ -66,9 +68,8 @@ class Predictor:
             if max_len is None:
                 raise ValueError("pass max_len or len_buckets")
             len_buckets = (max_len,)
-        first = next(model.parameters())
-        self.device = torch.device(device or first.device)
-        self.dtype = dtype or first.dtype
+        self.device = torch.device(device or cfg.default_device())
+        self.dtype = dtype or next(model.parameters()).dtype
         self.model = model.to(device=self.device, dtype=self.dtype).eval()
         self.len_buckets = tuple(sorted(int(x) for x in len_buckets))
         self.max_len = self.len_buckets[-1]

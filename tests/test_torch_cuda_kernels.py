@@ -8,9 +8,10 @@ Run them on the GPU machine with
 (``--noconftest``: the suite's conftest configures JAX, which that machine
 does not have.)
 
-Tolerance: <= 1e-5 * max(scale, 1) against the f32 plain version (CUDA's
-expf / expm1f against ``exp_accurate`` / the Taylor expm1, and another
-summation order).
+Tolerance: <= 1e-5 * max(scale, 1) for the forward kernels against the
+f32 plain version (CUDA's expf / expm1f against ``exp_accurate`` / the
+Taylor expm1, and another summation order); <= 1e-4 * max(scale, 1) for
+the backward kernels, whose gradients sum many more terms in another order.
 """
 
 import numpy as np
@@ -76,6 +77,74 @@ def test_kzx_kernel_matches_plain(cuda, base, inc, diff):
                                         increments=inc, difference=diff))
 
 
+def _grads_close(out, ref):
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        scale = max(float(r.abs().max()), 1.0)
+        assert float((o - r).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("base,inc", [("rbf", True), ("rbf", False),
+                                      ("linear", True), ("linear", False)])
+def test_kzz_bwd_kernel_matches_plain(cuda, base, inc):
+    zz, _ = _inputs(cuda, base, inc)
+    ct = torch.randn((M_LVL + 1, 37, 37), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(1))
+    before = ic.kzz_bwd.launches
+    out = ic.kzz_bwd(*zz, ct, num_levels=M_LVL, base=base, increments=inc)
+    torch.cuda.synchronize()
+    assert ic.kzz_bwd.launches == before + 1
+    _grads_close(out, ic.kzz_bwd_plain(*zz, ct, num_levels=M_LVL, base=base,
+                                       increments=inc))
+
+
+@pytest.mark.parametrize("base,inc,diff", [
+    ("rbf", True, True), ("rbf", False, False), ("rbf", True, False),
+    ("rbf", False, True), ("linear", True, True), ("linear", False, False)])
+def test_kzx_bwd_kernel_matches_plain(cuda, base, inc, diff):
+    _, zx = _inputs(cuda, base, inc)
+    ct = torch.randn((M_LVL + 1, 37, 3), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(2))
+    before = ic.kzx_bwd.launches
+    out = ic.kzx_bwd(*zx, ct, num_levels=M_LVL, base=base, increments=inc,
+                     difference=diff)
+    torch.cuda.synchronize()
+    assert ic.kzx_bwd.launches == before + 1
+    _grads_close(out, ic.kzx_bwd_plain(*zx, ct, num_levels=M_LVL, base=base,
+                                       increments=inc, difference=diff))
+
+
+@pytest.mark.parametrize("L", [1, 2])
+def test_kzx_kernels_on_short_sequences(cuda, L):
+    """The difference sweep has no step (L=1) or one (L=2)."""
+    _, zx = _inputs(cuda, "rbf", True, L=L)
+    kw = dict(num_levels=M_LVL, base="rbf", increments=True, difference=True)
+    ct = torch.randn((M_LVL + 1, 37, 3), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(3))
+    assert _bound(ic.kzx_fwd(*zx, **kw), ic.kzx_fwd_plain(*zx, **kw))
+    _grads_close(ic.kzx_bwd(*zx, ct, **kw), ic.kzx_bwd_plain(*zx, ct, **kw))
+
+
+def test_autograd_on_the_card_runs_the_backward_kernels(cuda):
+    """Gradients through the public wrappers reach Z and X on the card."""
+    rng = np.random.RandomState(3)
+    Z = torch.tensor(rng.randn(LT, 37, 2, 5) * 0.5, dtype=torch.float32,
+                     device=cuda, requires_grad=True)
+    X = torch.tensor(rng.randn(3, 18, 5) / 4, dtype=torch.float32,
+                     device=cuda, requires_grad=True)
+    before = (ic.kzz_bwd.launches, ic.kzx_bwd.launches)
+    loss = (ic.fused_tensor_levels(Z, num_levels=M_LVL).square().sum()
+            + ic.fused_tens_vs_seq_levels(Z, X, num_levels=M_LVL).sum())
+    gZ, gX = torch.autograd.grad(loss, (Z, X))
+    assert (ic.kzz_bwd.launches, ic.kzx_bwd.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    Zc = Z.detach().cpu().requires_grad_()
+    Xc = X.detach().cpu().requires_grad_()
+    loss_c = (ic.fused_tensor_levels(Zc, num_levels=M_LVL).square().sum()
+              + ic.fused_tens_vs_seq_levels(Zc, Xc, num_levels=M_LVL).sum())
+    _grads_close((gZ.cpu(), gX.cpu()), torch.autograd.grad(loss_c, (Zc, Xc)))
+
+
 def test_float64_on_the_card_raises(cuda):
     zz, zx = _inputs(cuda, "rbf", True)
     with pytest.raises(TypeError, match="float32"):
@@ -84,3 +153,11 @@ def test_float64_on_the_card_raises(cuda):
     with pytest.raises(TypeError, match="float32"):
         ic.kzx_fwd(*(t.double() for t in zx), num_levels=M_LVL, base="rbf",
                    increments=True, difference=True)
+    ct_zz = torch.zeros((M_LVL + 1, 37, 37), dtype=torch.float64, device=cuda)
+    ct_zx = torch.zeros((M_LVL + 1, 37, 3), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        ic.kzz_bwd(*(t.double() for t in zz), ct_zz, num_levels=M_LVL,
+                   base="rbf", increments=True)
+    with pytest.raises(TypeError, match="float32"):
+        ic.kzx_bwd(*(t.double() for t in zx), ct_zx, num_levels=M_LVL,
+                   base="rbf", increments=True, difference=True)

@@ -54,10 +54,13 @@ def _setup(dtype, *, fused="auto", learn_weights=False, normalization=True,
         np.tril(rng.randn(C, NZ, NZ)) * 0.1 + 0.6 * np.eye(NZ), jdt)
 
     tdt = torch.float64 if dtype == np.float64 else torch.float32
-    tkern = T.kernels.SignatureRBF(D, M, fused=fused, dtype=tdt, **opts)
+    tkern = T.kernels.SignatureRBF(D, M, fused=fused, dtype=tdt,
+                                   device="cpu", **opts)
     tind = T.InducingTensors(Z, M, increments=True,
-                             learn_weights=learn_weights, dtype=tdt)
-    tmodel = T.SVGP(tkern, tind, T.likelihoods.MultiClass(C), num_latent=C)
+                             learn_weights=learn_weights, dtype=tdt,
+                             device="cpu")
+    tmodel = T.SVGP(tkern, tind, T.likelihoods.MultiClass(C), num_latent=C,
+                    device="cpu")
     convert.load_jax_params(tmodel, params)
     return jmodel, params, tmodel, X[:N].astype(dtype)
 
@@ -143,7 +146,7 @@ def test_converter_round_trip():
     # JAX's fresh init and the port's agree leaf by leaf
     fresh_j = jmodel.init_params()
     fresh_t = jax.tree.map(lambda t: t.numpy(),
-                           tmodel.init_params(torch.float64))
+                           tmodel.init_params(torch.float64, "cpu"))
     for (path, a), (_, b) in zip(jax.tree_util.tree_leaves_with_path(fresh_j),
                                  jax.tree_util.tree_leaves_with_path(fresh_t)):
         np.testing.assert_allclose(np.asarray(a), b, rtol=1e-15, atol=0,
@@ -177,7 +180,8 @@ class TestPredictor:
 
     def test_shape_guards(self):
         _, _, tmodel, Xq = _setup(np.float64)
-        pred = T.serving.Predictor(tmodel, max_len=L, batch_buckets=(2,))
+        pred = T.serving.Predictor(tmodel, max_len=L, batch_buckets=(2,),
+                                   device="cpu")
         with pytest.raises(ValueError, match="exceeds the largest"):
             pred.predict_y(Xq)  # 5 rows > bucket 2
         with pytest.raises(ValueError, match="exceeds the largest"):

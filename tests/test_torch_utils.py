@@ -45,8 +45,9 @@ def test_port_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import gpsig_tpu_torch, gpsig_tpu_torch.ops._cuda_build\n"
+        "import gpsig_tpu_torch.training\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or "
-        "m.startswith('gpsig_tpu.') or m == 'gpsig_tpu' "
+        "m.split('.')[0] in ('optax', 'gpsig_tpu') "
         "for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
     )
