@@ -1,8 +1,9 @@
-// Device math shared by the inducing-covariance kernels (kzz_fwd.cu,
-// kzz_bwd.cu, kzx_fwd.cu, kzx_bwd.cu): the cancellation-free slot-Gram
-// algebra of gpsig_tpu/ops/inducing_pallas.py (_slot_gram_zz :153,
+// Device math shared by the covariance kernels: the cancellation-free
+// slot-Gram algebra of gpsig_tpu/ops/inducing_pallas.py (_slot_gram_zz :153,
 // _slot_gram_zz_bwd :175, _slot_gram_zx :554, _slot_gram_zx_bwd :604) on
-// norm-augmented value/difference vectors.
+// norm-augmented value/difference vectors, for kzz_fwd.cu, kzz_bwd.cu,
+// kzx_fwd.cu and kzx_bwd.cu; and the group scans and row dots of the
+// seq x seq kernels seq_fwd.cu and seq_bwd.cu.
 //
 // Transcendentals: CUDA's accurate expf (max 2 ulp) and expm1f (max 1 ulp),
 // never the __expf intrinsic -- the library is built without
@@ -29,6 +30,11 @@ constexpr int kMaxLevels = 8;
 // four augmented dots a00 = <v,w>, d01 = <v,dw>, d10 = <dv,w>, dxx = <dv,dw>.
 // rbf with increments is G11 + G00 - G10 - G01 of the two 2-point paths,
 // evaluated as exp(A00) (expm1(d01+d10+dxx) - expm1(d01) - expm1(d10)).
+// It is also the seq x seq increment-Gram entry of step s of one sequence
+// against step t of another (signature_pallas.py _increment_gram_row
+// :257-283) with increments = difference: the steps are 2-point paths, and
+// without difference the entry is the plain Gram exp(A00) / A00.  It is
+// symmetric in d01 and d10, so either sequence may be the row side.
 __device__ __forceinline__ float slot_gram_zz(float a00, float d01, float d10,
                                               float dxx, int base,
                                               bool increments) {
@@ -59,7 +65,9 @@ __device__ __forceinline__ float slot_gram_zx(float a0, float dza, float da0,
 
 // slot_gram_zz and its partials p = dG/d(a00, d01, d10, dxx) in one pass;
 // the backward weights of _slot_gram_zz_bwd are the slot cotangent times p
-// (W_A00, W_d01, W_d10, W_dxx).  Returns G.
+// (W_A00, W_d01, W_d10, W_dxx), and so are those of the seq x seq backward
+// with Mbar in place of the slot cotangent (signature_pallas.py:1021-1034).
+// Returns G.
 __device__ __forceinline__ float slot_gram_zz_partials(float a00, float d01,
                                                        float d10, float dxx,
                                                        int base,
@@ -125,6 +133,125 @@ __device__ __forceinline__ float slot_gram_zx_partials(float a0, float dza,
   }
   p[0] = ea;
   return ea;
+}
+
+// ---------------------------------------------------------------------------
+// seq x seq (seq_fwd.cu, seq_bwd.cu)
+// ---------------------------------------------------------------------------
+
+// A pair of sequences is handled by a group of G lanes of one warp (G a power
+// of two <= 32); lane lg of the group owns the inner time steps lg + j G,
+// j < cpl <= kSeqCols.  The group scans below run over the steps in that
+// order; every lane of the warp must call them (all groups of a warp share
+// G and cpl).
+constexpr int kSeqCols = 4;      // inner steps per lane: inner length <= 128
+constexpr int kSeqThreads = 128;  // threads per block of K5 / K6
+constexpr int kSeqWarps = kSeqThreads / 32;
+
+// y[j] = sum of x over the group's steps before step lg + j G (exclusive
+// prefix along the inner time axis).
+__device__ __forceinline__ void group_excl_scan(const float (&x)[kSeqCols],
+                                                float (&y)[kSeqCols], int cpl,
+                                                int lg, int G) {
+  float carry = 0.f;
+#pragma unroll
+  for (int j = 0; j < kSeqCols; ++j) {
+    if (j < cpl) {
+      float incl = x[j];
+      for (int off = 1; off < G; off <<= 1) {
+        const float t = __shfl_up_sync(0xffffffffu, incl, off, G);
+        if (lg >= off) incl += t;
+      }
+      const float ex = __shfl_up_sync(0xffffffffu, incl, 1, G);
+      y[j] = carry + (lg == 0 ? 0.f : ex);
+      carry += __shfl_sync(0xffffffffu, incl, G - 1, G);
+    } else {
+      y[j] = 0.f;
+    }
+  }
+}
+
+// y[j] = sum of x over the group's steps after step lg + j G (the adjoint:
+// exclusive suffix along the inner time axis).
+__device__ __forceinline__ void group_rev_excl_scan(
+    const float (&x)[kSeqCols], float (&y)[kSeqCols], int cpl, int lg,
+    int G) {
+  float carry = 0.f;
+#pragma unroll
+  for (int j = kSeqCols - 1; j >= 0; --j) {
+    if (j < cpl) {
+      float incl = x[j];
+      for (int off = 1; off < G; off <<= 1) {
+        const float t = __shfl_down_sync(0xffffffffu, incl, off, G);
+        if (lg + off < G) incl += t;
+      }
+      const float ex = __shfl_down_sync(0xffffffffu, incl, 1, G);
+      y[j] = carry + (lg == G - 1 ? 0.f : ex);
+      carry += __shfl_sync(0xffffffffu, incl, 0, G);
+    } else {
+      y[j] = 0.f;
+    }
+  }
+}
+
+// Sum of v over the group's G lanes, in every lane.
+__device__ __forceinline__ float group_sum(float v, int G) {
+  for (int off = G >> 1; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off, G);
+  return v;
+}
+
+// The four dots of outer row s (value ov_s, step od_s: d2 floats each)
+// against the lane's inner steps of one inner sequence, stored transposed
+// (ivT, idT: [d2][Li]).  Steps past the sweep read a live column and are
+// masked by the caller.  Without difference only a00 is formed.
+__device__ __forceinline__ void seq_row_dots(
+    const float* __restrict__ ov_s, const float* __restrict__ od_s,
+    const float* __restrict__ ivT, const float* __restrict__ idT, int Li,
+    int d2, int lg, int G, int cpl, bool difference, float (&a00)[kSeqCols],
+    float (&d01)[kSeqCols], float (&d10)[kSeqCols], float (&dxx)[kSeqCols]) {
+  int col[kSeqCols];
+#pragma unroll
+  for (int j = 0; j < kSeqCols; ++j) {
+    a00[j] = d01[j] = d10[j] = dxx[j] = 0.f;
+    col[j] = min(lg + j * G, Li - 1);
+  }
+  for (int c = 0; c < d2; ++c) {
+    const float a = __ldg(ov_s + c);
+    const float b = difference ? __ldg(od_s + c) : 0.f;
+    const float* xr = ivT + static_cast<size_t>(c) * Li;
+    const float* yr = idT + static_cast<size_t>(c) * Li;
+#pragma unroll
+    for (int j = 0; j < kSeqCols; ++j) {
+      if (j < cpl) {
+        const float x = __ldg(xr + col[j]);
+        a00[j] = fmaf(a, x, a00[j]);
+        if (difference) {
+          const float y = __ldg(yr + col[j]);
+          d01[j] = fmaf(a, y, d01[j]);
+          d10[j] = fmaf(b, x, d10[j]);
+          dxx[j] = fmaf(b, y, dxx[j]);
+        }
+      }
+    }
+  }
+}
+
+// The inner sequences [lo, hi) that block (o, split) of K5 / K6 takes.  In
+// symmetric mode each unordered pair is taken once: the upper triangle
+// (inner >= o) when `upper`, else the lower one (inner <= o).
+__device__ __forceinline__ void seq_inner_range(int o, int split, int splits,
+                                                int n_in, bool symmetric,
+                                                bool upper, int& lo,
+                                                int& hi) {
+  int first = 0, last = n_in;
+  if (symmetric) {
+    if (upper) first = o;
+    else last = o + 1;
+  }
+  const int per = (last - first + splits - 1) / splits;
+  lo = first + split * per;
+  hi = min(lo + per, last);
 }
 
 }  // namespace gpsig

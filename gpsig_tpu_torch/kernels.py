@@ -1,29 +1,33 @@
 """SignatureKernel: signature covariances over sequences, as an nn.Module.
 
-The port of ``gpsig_tpu/kernels.py`` for the serving slice.  The module
-holds the same raw (unconstrained) leaves as the JAX pytree, under the same
-names (``variances``, ``sigma``, ``lengthscales``), with the same bijectors,
-so raw values carry over unchanged (``convert.load_jax_params``).
+The port of ``gpsig_tpu/kernels.py``.  The module holds the same raw
+(unconstrained) leaves as the JAX pytree, under the same names
+(``variances``, ``sigma``, ``lengthscales``), with the same bijectors, so
+raw values carry over unchanged (``convert.load_jax_params``).
 
 Dispatch follows the JAX ``fused`` / ``fast_math`` contract
 (``gpsig_tpu/kernels.py:366-425``) with "TPU backend" read as "CUDA tensor,
 float32":
 
 * ``'off'`` runs the reference-shaped torch graphs (``ops/signature.py``);
-* ``'auto'`` and ``'on'`` send Kzz and Kzx through the kernel wrappers of
-  ``ops/inducing_cuda.py``: on a CPU tensor the wrapper runs its plain
-  version, on a CUDA tensor it launches the kernel, or raises for float64;
+* ``'auto'`` and ``'on'`` send Kzz and Kzx of inducing tensors through the
+  kernel wrappers of ``ops/inducing_cuda.py`` and the seq x seq Grams (with
+  ``difference``) through ``ops/signature_cuda.py``: on a CPU tensor a
+  wrapper runs its plain version, on a CUDA tensor it launches the kernel,
+  or raises for float64;
 * ``'on'`` on a CPU tensor raises.
 * ``fast_math`` is accepted; every value means full f32 on the card.
 
-No fallback is silent: the kernels tile through any feature width and
-sequence length, so there is no shape guard to decline.  The Kxx-diagonal
-leg keeps JAX's ``_closed_form_fns`` dispatch: cancellation-free closed
-forms at f32, the naive graph at f64 or under ``'off'``.
+No fallback is silent: the kernels tile through any feature width, and the
+seq x seq kernels take up to ``signature_cuda.MAX_STEPS`` steps on their
+inner axis and raise past it.  Without ``difference`` the seq x seq Gram
+takes the reference graph, as the JAX package does.  The Kxx-diagonal leg
+keeps JAX's ``_closed_form_fns`` dispatch: cancellation-free closed forms
+at f32, the naive graph at f64 or under ``'off'``.
 
-Outside the slice -- ``order > 1``, lags, low-rank features and
-``full_X_cov=True`` -- the module raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+Outside the port so far -- ``order > 1``, lags, low-rank features,
+``K_blocked`` and the public ``K_tens`` / ``K_tens_vs_seq`` -- the module
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from . import params as pm
 from .ops import base_kernels, gram
 from .ops import inducing_cuda as ic
 from .ops import signature as sig_ops
+from .ops import signature_cuda as sc
 
 
 def _as_sequences(X: torch.Tensor, num_features: int) -> torch.Tensor:
@@ -168,7 +173,7 @@ class SignatureKernel(nn.Module):
         return gram.increment_gram_fns(self.base)
 
     def _kernel_route(self, t: torch.Tensor) -> bool:
-        """Whether Kzz/Kzx go through the ``inducing_cuda`` wrappers."""
+        """Whether the covariances go through the kernel wrappers."""
         if self.fused == "off":
             return False
         if self.fused == "on" and t.device.type != "cuda":
@@ -178,6 +183,26 @@ class SignatureKernel(nn.Module):
                 "fused='auto' to run their plain versions on the CPU"
             )
         return True
+
+    def _K_seq(self, cp: dict, X, X2=None):
+        """(M+1, N1, N2) unnormalized per-level kernels; exactly symmetric
+        when X2 is None.  With ``difference`` and the kernel route, K5/K6
+        (``signature_cuda``); else the reference graph on the full base
+        Gram (``gpsig_tpu/kernels.py:306-318``)."""
+        if self.difference and self._kernel_route(X):
+            return sc.fused_first_order_levels(
+                X, X2, num_levels=self.num_levels, base=self.base,
+                difference=True)
+        kern = self._base_kern(cp)
+        N1, L1, d = X.shape
+        if X2 is None:
+            M = kern(X.reshape(N1 * L1, d)).reshape(N1, L1, N1, L1)
+        else:
+            N2, L2, _ = X2.shape
+            M = kern(X.reshape(N1 * L1, d),
+                     X2.reshape(N2 * L2, d)).reshape(N1, L1, N2, L2)
+        return sig_ops.signature_kern_first_order(
+            M, self.num_levels, difference=self.difference)
 
     def _K_seq_diag(self, cp: dict, X):
         """(M+1, N) unnormalized per-level diagonals."""
@@ -235,32 +260,112 @@ class SignatureKernel(nn.Module):
     # public covariance API
     # ------------------------------------------------------------------
 
+    def _normalize_sym(self, K_lvls):
+        """A symmetric level stack over its own jittered diagonal; returns
+        (normalized, sqrt of the jittered diagonal)."""
+        n = K_lvls.shape[-1]
+        K_lvls = K_lvls + cfg.jitter() * torch.eye(
+            n, dtype=K_lvls.dtype, device=K_lvls.device)
+        d = torch.sqrt(torch.diagonal(K_lvls, dim1=-2, dim2=-1))
+        return K_lvls / (d[:, :, None] * d[:, None, :]), d
+
+    def _diag_sqrt(self, cp: dict, X):
+        """sqrt of the jittered diagonal a cross Gram is normalized by."""
+        return torch.sqrt(self._K_seq_diag(cp, X) + cfg.jitter())
+
+    def _data_cov(self, cp: dict, X, full: bool):
+        """The data side's level stack -- the full Gram, or its diagonal --
+        normalized and level-scaled, and the sqrt-diagonal the cross Gram
+        is divided by (None without normalization)."""
+        if full:
+            K_lvls, d = self._K_seq(cp, X), None
+            if self.normalization:
+                K_lvls, d = self._normalize_sym(K_lvls)
+            return self._level_scale(cp, K_lvls), d
+        if not self.normalization:
+            return self._level_scale(cp, self._K_seq_diag(cp, X)), None
+        sig_var = (cp["sigma"] * cp["variances"]).to(X.dtype)
+        return sig_var[:, None].expand(-1, X.shape[0]), self._diag_sqrt(cp, X)
+
+    def _finalize(self, K_lvls, return_levels: bool):
+        return K_lvls if return_levels else torch.sum(K_lvls, dim=0)
+
+    def K(self, X, X2=None, *, return_levels: bool = False):
+        """Signature kernel matrix between sequences (N1, N2), or its
+        (M+1, N1, N2) levels.  A symmetric Gram is normalized by its own
+        jittered diagonal, a cross Gram by the two diagonals
+        (``_K_seq_diag``)."""
+        cp = self.constrain()
+        X = self._scale_sequences(cp, _as_sequences(X, self.num_features))
+        if X2 is None:
+            K_lvls = self._K_seq(cp, X)
+            if self.normalization:
+                K_lvls, _ = self._normalize_sym(K_lvls)
+        else:
+            X2 = self._scale_sequences(
+                cp, _as_sequences(X2, self.num_features))
+            K_lvls = self._K_seq(cp, X, X2)
+            if self.normalization:
+                d1, d2 = self._diag_sqrt(cp, X), self._diag_sqrt(cp, X2)
+                K_lvls = K_lvls / (d1[:, :, None] * d2[:, None, :])
+        return self._finalize(self._level_scale(cp, K_lvls), return_levels)
+
+    def Kdiag(self, X, *, return_levels: bool = False):
+        """Diagonal of ``K(X)``: exactly sigma * variances per level when
+        normalized."""
+        cp = self.constrain()
+        X = _as_sequences(X, self.num_features)
+        if self.normalization:
+            sig_var = cp["sigma"] * cp["variances"]
+            lvls = sig_var[:, None].expand(-1, X.shape[0])
+            return self._finalize(lvls.to(X.dtype), return_levels)
+        K_lvls = self._K_seq_diag(cp, self._scale_sequences(cp, X))
+        return self._finalize(self._level_scale(cp, K_lvls), return_levels)
+
+    def K_blocked(self, *args, **kwargs):
+        raise NotImplementedError(
+            "K_blocked is not ported yet: ROADMAP Queue 1, item 6")
+
     def K_tens_n_seq_covs(self, Z, X, *, full_X_cov: bool = False,
                           increments: bool = False,
                           return_levels: bool = False):
-        """Kzz, Kzx and the Kxx diagonal in one call, sharing the scaled
-        inputs and the Kxx diagonal between Kzx normalization and Kff."""
-        if full_X_cov:
-            raise NotImplementedError(
-                "full_X_cov=True needs the seq x seq kernel (K5): ROADMAP "
-                "Queue 1, item 3")
+        """Kzz, Kzx and Kxx (its diagonal, or the full Gram with
+        ``full_X_cov``) in one call, sharing the scaled inputs and the Kxx
+        normalization between Kzx and Kxx."""
         cp = self.constrain()
         Z = self._scale_tensors(cp, Z)
-        X = _as_sequences(X, self.num_features)
-        N = X.shape[0]
-        X_scaled = self._scale_sequences(cp, X)
+        X_scaled = self._scale_sequences(
+            cp, _as_sequences(X, self.num_features))
         Kzz_lvls = self._K_tens(cp, Z, increments)
         Kzx_lvls = self._K_tens_vs_seq(cp, Z, X_scaled, increments)
-        Kxx_diag = self._K_seq_diag(cp, X_scaled)
-        if self.normalization:
-            Kzx_lvls = Kzx_lvls / torch.sqrt(Kxx_diag + cfg.jitter())[:, None, :]
-            sig_var = (cp["sigma"] * cp["variances"]).to(Kxx_diag.dtype)
-            Kxx_diag = sig_var[:, None].expand(-1, N)
-        else:
-            Kxx_diag = self._level_scale(cp, Kxx_diag)
+        Kxx_lvls, d = self._data_cov(cp, X_scaled, full_X_cov)
+        if d is not None:
+            Kzx_lvls = Kzx_lvls / d[:, None, :]
         out = (self._level_scale(cp, Kzz_lvls),
-               self._level_scale(cp, Kzx_lvls),
-               Kxx_diag)
+               self._level_scale(cp, Kzx_lvls), Kxx_lvls)
+        if return_levels:
+            return out
+        return tuple(torch.sum(o, dim=0) for o in out)
+
+    def K_seq_n_seq_covs(self, X, X2, *, full_X2_cov: bool = False,
+                         return_levels: bool = False):
+        """Kxx, Kxx2 and Kx2x2 (its diagonal, or the full Gram with
+        ``full_X2_cov``) for inducing sequences X against data X2: the
+        symmetric Grams normalized by their own jittered diagonals, the
+        cross Gram by both (``gpsig_tpu/kernels.py:947-1017``)."""
+        cp = self.constrain()
+        Xs = self._scale_sequences(cp, _as_sequences(X, self.num_features))
+        X2s = self._scale_sequences(cp, _as_sequences(X2, self.num_features))
+        Kxx_lvls = self._K_seq(cp, Xs)
+        Kxx2_lvls = self._K_seq(cp, Xs, X2s)
+        if self.normalization:
+            Kxx_lvls, d1 = self._normalize_sym(Kxx_lvls)
+            Kxx2_lvls = Kxx2_lvls / d1[:, :, None]
+        Kx2_lvls, d2 = self._data_cov(cp, X2s, full_X2_cov)
+        if d2 is not None:
+            Kxx2_lvls = Kxx2_lvls / d2[:, None, :]
+        out = (self._level_scale(cp, Kxx_lvls),
+               self._level_scale(cp, Kxx2_lvls), Kx2_lvls)
         if return_levels:
             return out
         return tuple(torch.sum(o, dim=0) for o in out)

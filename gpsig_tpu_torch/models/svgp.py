@@ -6,10 +6,12 @@ submodules under the JAX pytree's names::
     kern.{variances, sigma, lengthscales}   ind.{Z, [W]}
     q_mu (M, P)                             q_sqrt (P, M, M), or (M, P) if q_diag
 
-``loss`` (the negative ELBO) is what ``training.optimize`` minimizes; its
-gradients reach Kzz and Kzx through the kernels' autograd Functions
-(``ops/inducing_cuda.py``).  Full predictive covariances need the seq x seq
-kernel (ROADMAP Queue 1, item 3).
+``ind`` is an ``InducingTensors`` or an ``InducingSequences``.  ``loss``
+(the negative ELBO) is what ``training.optimize`` minimizes; its gradients
+reach Kzz and Kzx through the kernels' autograd Functions
+(``ops/inducing_cuda.py``, ``ops/signature_cuda.py``).
+``predict_f(full_cov=True)`` gives the (P, N, N) predictive covariance from
+the full Kxx (K5).
 """
 
 from __future__ import annotations
@@ -70,17 +72,14 @@ class SVGP(nn.Module):
 
     def predict_f(self, X, *, full_cov: bool = False,
                   return_Kzz: bool = False):
-        """q(f*) mean and variance at new sequences, (N, P) each, and the
-        jittered Kzz with ``return_Kzz``."""
-        if full_cov:
-            raise NotImplementedError(
-                "full_cov=True needs the seq x seq kernel (K5): ROADMAP "
-                "Queue 1, item 3")
+        """q(f*) mean (N, P) and variance (N, P), or covariance (P, N, N)
+        with ``full_cov``, at new sequences; and the jittered Kzz with
+        ``return_Kzz``."""
         Kzz, Kzx, Kxx = self.ind.Kuu_Kuf_Kff(
-            self.kern, X, jitter=cfg.jitter(), full_f_cov=False)
+            self.kern, X, jitter=cfg.jitter(), full_f_cov=full_cov)
         fmean, fvar = base_conditional(Kzx, Kzz, Kxx, self.q_mu,
                                        q_sqrt=self._q_sqrt(),
-                                       white=self.whiten)
+                                       white=self.whiten, full_cov=full_cov)
         if return_Kzz:
             return fmean, fvar, Kzz
         return fmean, fvar

@@ -26,7 +26,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_SOURCES = ("kzz_fwd.cu", "kzz_bwd.cu", "kzx_fwd.cu", "kzx_bwd.cu")
+_SOURCES = ("kzz_fwd.cu", "kzz_bwd.cu", "kzx_fwd.cu", "kzx_bwd.cu",
+            "seq_fwd.cu", "seq_bwd.cu")
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -46,6 +47,13 @@ _SIGNATURES = {
     # vl, dl, xv, xd, ct, gz, gx, ck, lt, nz, n_ex, L, d2, num_levels,
     # base, increments, difference, t_chunk, stream
     "gpsig_kzx_bwd": [_P] * 8 + [_I] * 10 + [_P],
+    # ov, od, ivT, idT, out, n_out, L_out, n_in, L_in, d2, num_levels, base,
+    # difference, symmetric, swap, group, cpl, splits, stream
+    "gpsig_seq_fwd": [_P] * 5 + [_I] * 13 + [_P],
+    # lv, ld, rv, rd, lvT, ldT, rvT, rdT, ct, g1, g2, scratch, n1, L1, n2,
+    # L2, d2, num_levels, base, difference, symmetric, group0, cpl0,
+    # splits0, group1, cpl1, splits1, stream
+    "gpsig_seq_bwd": [_P] * 12 + [_I] * 15 + [_P],
 }
 
 

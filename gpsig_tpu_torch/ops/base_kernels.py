@@ -15,7 +15,7 @@ import torch
 
 _OTHER_BASES = "ROADMAP Queue 1, item 6 (the other base kernels)"
 _NOT_PORTED = {
-    "matern12": "ROADMAP Queue 1, item 2 (matern12 in K1 and K3)",
+    "matern12": "ROADMAP Queue 1, item 2 (matern12 in K1-K6)",
     **{name: _OTHER_BASES for name in (
         "cosine", "poly", "mix", "matern32", "matern52", "spectral_rbf",
         "spectral_exp", "spectral_mixed")},

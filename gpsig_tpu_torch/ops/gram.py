@@ -1,10 +1,10 @@
 """Cancellation-free increment Grams and batched level recursions.
 
-The subset of ``gpsig_tpu/ops/gram.py`` that the serving slice runs: the
-f32 Kxx-diagonal leg (closed-form rbf/linear increment Grams, the level
+The subset of ``gpsig_tpu/ops/gram.py`` that the port runs: the f32
+Kxx-diagonal leg (closed-form rbf/linear increment Grams, the level
 recursion with exclusive cumsums as triangular-ones matmuls, the telescoped
-exact level 1) and the accurate f32 ``exp``/``expm1`` that the plain
-versions of the inducing kernels use.
+exact level 1 of a diagonal and of a cross Gram) and the accurate f32
+``exp``/``expm1`` that the plain versions of the kernels use.
 
 Where the JAX package takes a matmul ``precision`` argument, the port has
 none: ``config.py`` keeps every f32 matmul in full f32.
@@ -180,6 +180,16 @@ def increment_gram_fns(base: str):
     (None, None) where the port has none."""
     fns = INCREMENT_GRAMS.get(base)
     return (fns[0], fns[1]) if fns else (None, None)
+
+
+def level1_exact_cross(increment_fn, X, X2):
+    """(N1, N2) exact level-1 kernel from endpoints only: the level-1
+    double sum telescopes to the increment formula on the 2-point paths
+    (x_0, x_L), (y_0, y_L), so its f32 error is ~2e-7 relative whatever L,
+    where summing the (L-1)^2 increments random-walks."""
+    ends = X[:, [0, X.shape[1] - 1], :]
+    ends2 = X2[:, [0, X2.shape[1] - 1], :]
+    return increment_fn(ends, ends2)[:, :, 0, 0]
 
 
 def level1_exact_diag(increment_diag_fn, X):

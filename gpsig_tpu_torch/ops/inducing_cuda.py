@@ -89,12 +89,13 @@ def _prep_tensors(Z, base: str, increments: bool, lhs: bool):
     return V.contiguous(), D.contiguous()
 
 
-def _prep_seq(X, base: str):
-    """(N, L, d) -> rhs value / step rows, each (N, L, d2); the last step
-    repeats the last observation, so its difference is exactly 0."""
+def _prep_seq(X, base: str, lhs: bool = False):
+    """(N, L, d) -> value / step rows, each (N, L, d2), rhs-augmented unless
+    ``lhs``; the last step repeats the last observation, so its difference
+    is exactly 0."""
     Xn = torch.cat([X[:, 1:], X[:, -1:]], dim=1)
-    V = _aug_value(X, base, lhs=False)
-    D = _aug_diff(X, Xn, base, lhs=False)
+    V = _aug_value(X, base, lhs=lhs)
+    D = _aug_diff(X, Xn, base, lhs=lhs)
     return V.contiguous(), D.contiguous()
 
 
@@ -227,13 +228,17 @@ def _contract(terms, like):
     return torch.zeros_like(like) if out is None else out
 
 
-def _zz_partials(Vl, Dl, Vr, Dr, base: str, increments: bool):
+def _slot_dots(A, B):
+    return torch.matmul(A, B.transpose(1, 2))
+
+
+def _zz_partials(Vl, Dl, Vr, Dr, base: str, increments: bool,
+                 dots=_slot_dots):
     """Slot Grams G (lt, nZ, nZ) and their partials dG/d(A00, d01, d10,
     dxx), None where zero: ``common.cuh::slot_gram_zz_partials`` in torch
     ops (``_slot_gram_zz_bwd``, ``inducing_pallas.py:175``, before the slot
-    cotangent)."""
-    def dots(A, B):
-        return torch.matmul(A, B.transpose(1, 2))
+    cotangent).  ``dots`` contracts the feature axis; the seq x seq plain
+    versions pass their own, for (N1, N2, L1, L2) increment Grams."""
 
     exp, expm1 = gram.exp_accurate, gram._expm1_stable
     if base == "linear":

@@ -1,4 +1,4 @@
-"""Initialization heuristics for inducing tensors and lengthscales.
+"""Initialization heuristics for inducing variables and lengthscales.
 
 Pure numpy, with the semantics of ``gpsig_tpu/utils/init_heuristics.py``
 (same draws from the same seed), so the port can build a model without
@@ -83,6 +83,53 @@ def suggest_initial_inducing_tensors(sequences, num_levels: int,
         Z = np.tile(Z[..., None, :], (1,) * (Z.ndim - 1) + (reps, 1))
         Z = Z.reshape(*Z.shape[:-2], reps * Z.shape[-1])
 
+    return Z + 0.4 * rng.randn(*Z.shape)
+
+
+def _sample_sequences_from(sequences, num_inducing, len_inducing, rng):
+    """Random windows of ``len_inducing`` consecutive observations, each
+    ending before the sequence's first NaN (or anywhere when it has none)."""
+    chosen = sequences[rng.choice(sequences.shape[0], size=num_inducing,
+                                  replace=True)]
+    L = chosen.shape[1]
+    any_nan = np.any(np.isnan(chosen), axis=2)  # (n, L)
+    first_nan = np.where(any_nan.any(axis=1), np.argmax(any_nan, axis=1), L)
+    first_nan = np.maximum(first_nan, len_inducing)
+    last = np.array(
+        [rng.randint(len_inducing - 1, fn) for fn in first_nan]
+    )
+    idx = np.stack(
+        [last - len_inducing + 1 + i for i in range(len_inducing)], axis=1
+    )[..., None]
+    return np.take_along_axis(chosen, idx, axis=1)
+
+
+def suggest_initial_inducing_sequences(sequences, num_inducing: int,
+                                       len_inducing: int, *, labels=None,
+                                       seed: int | None = None):
+    """Initial inducing sequences ``(num_inducing, len_inducing, d)``:
+    windows of observed sequences, class-stratified when ``labels`` is
+    given, with 0.4-sigma jitter."""
+    rng = np.random.RandomState(seed)
+    sequences = np.asarray(sequences)
+
+    chunks = []
+    if labels is not None:
+        labels = np.asarray(labels)
+        for c in np.unique(labels):
+            frac = np.mean(labels == c)
+            n_c = int(np.floor(frac * num_inducing))
+            if n_c > 0:
+                chunks.append(
+                    _sample_sequences_from(sequences[labels == c], n_c,
+                                           len_inducing, rng)
+                )
+    remaining = num_inducing - sum(z.shape[0] for z in chunks)
+    if remaining > 0:
+        chunks.append(
+            _sample_sequences_from(sequences, remaining, len_inducing, rng)
+        )
+    Z = np.concatenate(chunks, axis=0)
     return Z + 0.4 * rng.randn(*Z.shape)
 
 

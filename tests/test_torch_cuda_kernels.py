@@ -12,6 +12,9 @@ Tolerance: <= 1e-5 * max(scale, 1) for the forward kernels against the
 f32 plain version (CUDA's expf / expm1f against ``exp_accurate`` / the
 Taylor expm1, and another summation order); <= 1e-4 * max(scale, 1) for
 the backward kernels, whose gradients sum many more terms in another order.
+The seq x seq kernels K5/K6 are held against the f64 plain version, with
+the same bounds as ``chip_smoke.py``'s (1e-4 * max(scale, 1)): their level
+sums over 100s of steps carry f32 rounding of the plain version as well.
 """
 
 import numpy as np
@@ -19,6 +22,7 @@ import pytest
 import torch
 
 from gpsig_tpu_torch.ops import inducing_cuda as ic
+from gpsig_tpu_torch.ops import signature_cuda as sc
 
 pytestmark = pytest.mark.cuda
 
@@ -161,3 +165,69 @@ def test_float64_on_the_card_raises(cuda):
     with pytest.raises(TypeError, match="float32"):
         ic.kzx_bwd(*(t.double() for t in zx), ct_zx, num_levels=M_LVL,
                    base="rbf", increments=True, difference=True)
+
+
+def _seq_rows(cuda, base, n1=7, L1=11, n2=5, L2=18, sym=False, seed=4):
+    rng = np.random.RandomState(seed)
+    X = torch.as_tensor(rng.randn(n1, L1, 5) / np.sqrt(L1), dtype=torch.float32,
+                        device=cuda)
+    X2 = X if sym else torch.as_tensor(rng.randn(n2, L2, 5) / np.sqrt(L2),
+                                       dtype=torch.float32, device=cuda)
+    return (*ic._prep_seq(X, base, lhs=True), *ic._prep_seq(X2, base))
+
+
+@pytest.mark.parametrize("base,diff,sym,L1,L2", [
+    ("rbf", True, False, 11, 18), ("rbf", True, False, 18, 11),
+    ("rbf", False, False, 11, 18), ("linear", True, False, 11, 18),
+    ("linear", False, False, 11, 18), ("rbf", True, True, 9, 9),
+    ("linear", True, True, 9, 9), ("rbf", True, False, 1, 7)])
+def test_seq_kernels_match_plain(cuda, base, diff, sym, L1, L2):
+    rows = _seq_rows(cuda, base, L1=L1, L2=L2, sym=sym,
+                     n2=7 if sym else 5)
+    kw = dict(num_levels=M_LVL, base=base, difference=diff, symmetric=sym)
+    ct = torch.randn((M_LVL + 1, 7, 7 if sym else 5), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(5))
+    before = (sc.seq_fwd.launches, sc.seq_bwd.launches)
+    out = sc.seq_fwd(*rows, **kw)
+    grads = sc.seq_bwd(*rows, ct, **kw)
+    torch.cuda.synchronize()
+    assert (sc.seq_fwd.launches, sc.seq_bwd.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    rows64 = [t.double() for t in rows]
+    ref = sc.seq_fwd_plain(*rows64, **kw)
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((out.double() - ref).abs().max()) <= 1e-4 * scale
+    if sym:
+        assert torch.equal(out, out.transpose(1, 2))
+    _grads_close([g.double() for g in grads],
+                 sc.seq_bwd_plain(*rows64, ct.double(), **kw))
+
+
+def test_seq_autograd_on_the_card_runs_k5_and_k6(cuda):
+    rng = np.random.RandomState(6)
+    X = torch.tensor(rng.randn(4, 12, 5) / 4, dtype=torch.float32,
+                     device=cuda, requires_grad=True)
+    X2 = torch.tensor(rng.randn(3, 20, 5) / 4, dtype=torch.float32,
+                      device=cuda, requires_grad=True)
+    before = (sc.seq_fwd.launches, sc.seq_bwd.launches)
+    loss = (sc.fused_first_order_levels(X, num_levels=M_LVL).square().sum()
+            + sc.fused_first_order_levels(X, X2, num_levels=M_LVL).sum())
+    gX, gX2 = torch.autograd.grad(loss, (X, X2))
+    assert (sc.seq_fwd.launches, sc.seq_bwd.launches) == (before[0] + 2,
+                                                          before[1] + 2)
+    Xc = X.detach().cpu().double().requires_grad_()
+    X2c = X2.detach().cpu().double().requires_grad_()
+    loss_c = (sc.fused_first_order_levels(Xc, num_levels=M_LVL).square().sum()
+              + sc.fused_first_order_levels(Xc, X2c, num_levels=M_LVL).sum())
+    _grads_close((gX.cpu().double(), gX2.cpu().double()),
+                 torch.autograd.grad(loss_c, (Xc, X2c)))
+
+
+def test_seq_kernels_raise_on_the_card(cuda):
+    rows = _seq_rows(cuda, "rbf")
+    with pytest.raises(TypeError, match="float32"):
+        sc.seq_fwd(*(t.double() for t in rows), num_levels=M_LVL,
+                   base="rbf", difference=True)
+    long_rows = _seq_rows(cuda, "rbf", L1=140, L2=140)
+    with pytest.raises(ValueError, match="at most 128 steps"):
+        sc.seq_fwd(*long_rows, num_levels=M_LVL, base="rbf", difference=True)

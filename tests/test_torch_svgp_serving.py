@@ -132,7 +132,7 @@ def test_outside_the_slice_raises():
         T.kernels.SignatureRBF(D, M, low_rank=True)
     _, _, tmodel, Xq = _setup(np.float64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.predict_f(torch.from_numpy(Xq), full_cov=True)
+        tmodel.kern.K_blocked(torch.from_numpy(Xq))
 
 
 def test_converter_round_trip():
