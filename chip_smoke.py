@@ -20,8 +20,11 @@ and prints no result line):
    many more terms in another order); K5 (seq x seq) and K6 (its backward)
    under the same bounds at the shapes of the inducing-sequences model --
    500 sequences of length 5 (symmetric), 500 x 50 at 5 vs 93 steps, 50 at
-   93 (symmetric) -- and ragged 7 x 5 at 11 vs 18 (rbf and linear,
-   difference on and off); symmetric outputs must be exactly symmetric;
+   93 (symmetric), 500 x 50 at 5 vs 205 steps in both argument orders (an
+   outer side past K5/K6's 128 inner steps) -- and ragged 7 x 5 at 11 vs
+   18 (rbf and linear, difference on and off); symmetric outputs must be
+   exactly symmetric, and K4 and K6 launched twice on the same inputs
+   must give bit-identical gradients;
 3. serving: an SVGP at the benchmark width (SignatureRBF d=14 M=4, 500
    incremental inducing tensors, MultiClass C=10) behind a bucketed
    ``serving.Predictor`` with ``fused='on'`` answers ragged requests; K1's
@@ -85,6 +88,7 @@ GRAD_BOUND, GRAD_FLOOR = 1e-3, 1e-3
 # H100 SXM: f32 outside the tensor cores, HBM3 (NVIDIA's data sheet)
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 LEN_IND = LEVELS + 1  # inducing sequences of the recipe (train_gpsig.py:76-80)
+LONG = 205  # steps of the longest CharacterTrajectories series
 KERNELS = {  # name: (module, source, TPU kernel it replaces)
     "kzz_fwd": ("inducing_cuda", "gpsig_tpu_torch/csrc/kzz_fwd.cu",
                 "gpsig_tpu/ops/inducing_pallas.py:223"),
@@ -249,6 +253,9 @@ def kernel_checks(ic, ut, X):
              ic.kzx_bwd_plain(*zx32, cx32, **kwx),
              ic.kzx_bwd_plain(*zx64, cx64, **kwx)),
         )
+        again = ic.kzx_bwd(*zx32, cx32, **kwx)
+        check(all(torch.equal(a, b) for a, b in zip(pairs[3][1], again)),
+              f"kzx_bwd {nz, n, l, base, inc, diff}: two launches differ")
         torch.cuda.synchronize()
         for pair in pairs:
             rows.append(check_against_plain(
@@ -285,6 +292,10 @@ SEQ_CASES = (  # (N1, L1, N2, L2, symmetric, base, difference)
     (N_IND, LEN_IND, N_IND, LEN_IND, True, "rbf", True),  # Kzz
     (N_IND, LEN_IND, BATCH, L, False, "rbf", True),  # Kzx
     (BATCH, L, BATCH, L, True, "rbf", True),  # full Kxx
+    # data longer than K5/K6's 128 inner steps (CharacterTrajectories'
+    # longest, benchmarks/datasets.json), in both argument orders
+    (N_IND, LEN_IND, BATCH, LONG, False, "rbf", True),
+    (BATCH, LONG, N_IND, LEN_IND, False, "rbf", True),
     (7, 11, 5, 18, False, "rbf", True),
     (7, 11, 5, 18, False, "rbf", False),
     (7, 11, 5, 18, False, "linear", True),
@@ -297,10 +308,16 @@ def seq_inputs(ic, Zs, X, ls, case, dtype):
     scaled) and a cotangent from the seed, on the card."""
     n1, l1, n2, l2, sym, base, _ = case
     scale = torch.as_tensor(ls, dtype=dtype, device="cuda")
-    A = Zs[:n1, :l1] if l1 == LEN_IND else X[-n1:, :l1]
+
+    def data(n, l, last):
+        if l <= L:
+            return X[-n:, :l] if last else X[:n, :l]
+        return np.random.RandomState(SEED + 7).randn(n, l, D)
+
+    A = Zs[:n1, :l1] if l1 == LEN_IND else data(n1, l1, True)
     A = torch.as_tensor(A, dtype=dtype, device="cuda") / scale
-    B = A if sym else torch.as_tensor(X[:n2, :l2], dtype=dtype,
-                                      device="cuda") / scale
+    B = Zs[:n2, :l2] if l2 == LEN_IND else data(n2, l2, False)
+    B = A if sym else torch.as_tensor(B, dtype=dtype, device="cuda") / scale
     ct = torch.as_tensor(np.random.RandomState(SEED + 6).randn(
         LEVELS + 1, n1, n2), dtype=dtype, device="cuda")
     return (*ic._prep_seq(A, base, lhs=True), *ic._prep_seq(B, base)), ct
@@ -318,6 +335,9 @@ def seq_kernel_checks(sc, ic, Zs, X, ls):
                   symmetric=sym)
         out = sc.seq_fwd(*r32, **kw)
         grads = sc.seq_bwd(*r32, ct32, **kw)
+        again = sc.seq_bwd(*r32, ct32, **kw)
+        check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+              f"seq_bwd {case}: two launches differ")
         pairs = (("seq_fwd", out, sc.seq_fwd_plain(*r32, **kw),
                   sc.seq_fwd_plain(*r64, **kw)),
                  ("seq_bwd", grads, sc.seq_bwd_plain(*r32, ct32, **kw),
@@ -535,9 +555,10 @@ def seq_bound_ms(name: str, case) -> tuple[float, str]:
 
 def time_seq_kernels(sc, ic, Zs, X, ls):
     """Phase 4a': K5 and K6 vs their plain versions at the three
-    full-width shapes (Kzz, Kzx, full Kxx), interleaved."""
+    full-width shapes (Kzz, Kzx, full Kxx) and at Kzx with 205-step data,
+    interleaved."""
     rows = []
-    for case in SEQ_CASES[:3]:
+    for case in SEQ_CASES[:4]:
         n1, l1, n2, l2, sym, base, diff = case
         r, ct = seq_inputs(ic, Zs, X, ls, case, torch.float32)
         kw = dict(num_levels=LEVELS, base=base, difference=diff,
@@ -803,7 +824,8 @@ def main() -> None:
     for name, (_, src, replaces) in KERNELS.items():
         if name.startswith("seq"):  # at the Kzx shape of a training step
             t = next(r for r in ktimes if r["kernel"] == name
-                     and r.get("N2") == BATCH and r["N1"] == N_IND)
+                     and r.get("N2") == BATCH and r["N1"] == N_IND
+                     and r["L2"] == L)
             launches = s_train_launches[name]
         else:
             t = next(r for r in ktimes if r["kernel"] == name

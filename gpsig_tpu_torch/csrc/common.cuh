@@ -73,9 +73,11 @@ __device__ __forceinline__ float slot_gram_zz_partials(float a00, float d01,
                                                        int base,
                                                        bool increments,
                                                        float p[4]) {
+  // every index below is a constant, so p stays in registers
   p[0] = p[1] = p[2] = p[3] = 0.f;
   if (base == kLinear) {
-    p[increments ? 3 : 0] = 1.f;
+    p[0] = increments ? 0.f : 1.f;
+    p[3] = increments ? 1.f : 0.f;
     return increments ? dxx : a00;
   }
   const float ea = expf(a00);
@@ -102,10 +104,14 @@ __device__ __forceinline__ float slot_gram_zx_partials(float a0, float dza,
                                                        bool increments,
                                                        bool difference,
                                                        float p[4]) {
+  // every index below is a constant, so p stays in registers
   p[0] = p[1] = p[2] = p[3] = 0.f;
   if (base == kLinear) {
     const int which = (increments ? 1 : 0) + (difference ? 2 : 0);
-    p[which] = 1.f;
+    p[0] = which == 0 ? 1.f : 0.f;
+    p[1] = which == 1 ? 1.f : 0.f;
+    p[2] = which == 2 ? 1.f : 0.f;
+    p[3] = which == 3 ? 1.f : 0.f;
     return which == 3 ? dda : which == 2 ? da0 : which == 1 ? dza : a0;
   }
   const float ea = expf(a0);
@@ -149,13 +155,15 @@ constexpr int kSeqThreads = 128;  // threads per block of K5 / K6
 constexpr int kSeqWarps = kSeqThreads / 32;
 
 // y[j] = sum of x over the group's steps before step lg + j G (exclusive
-// prefix along the inner time axis).
-__device__ __forceinline__ void group_excl_scan(const float (&x)[kSeqCols],
-                                                float (&y)[kSeqCols], int cpl,
+// prefix along the inner time axis).  N, the lane's register slots, is
+// kSeqCols or fewer (cpl <= N).
+template <int N>
+__device__ __forceinline__ void group_excl_scan(const float (&x)[N],
+                                                float (&y)[N], int cpl,
                                                 int lg, int G) {
   float carry = 0.f;
 #pragma unroll
-  for (int j = 0; j < kSeqCols; ++j) {
+  for (int j = 0; j < N; ++j) {
     if (j < cpl) {
       float incl = x[j];
       for (int off = 1; off < G; off <<= 1) {
@@ -173,12 +181,13 @@ __device__ __forceinline__ void group_excl_scan(const float (&x)[kSeqCols],
 
 // y[j] = sum of x over the group's steps after step lg + j G (the adjoint:
 // exclusive suffix along the inner time axis).
-__device__ __forceinline__ void group_rev_excl_scan(
-    const float (&x)[kSeqCols], float (&y)[kSeqCols], int cpl, int lg,
-    int G) {
+template <int N>
+__device__ __forceinline__ void group_rev_excl_scan(const float (&x)[N],
+                                                    float (&y)[N], int cpl,
+                                                    int lg, int G) {
   float carry = 0.f;
 #pragma unroll
-  for (int j = kSeqCols - 1; j >= 0; --j) {
+  for (int j = N - 1; j >= 0; --j) {
     if (j < cpl) {
       float incl = x[j];
       for (int off = 1; off < G; off <<= 1) {
@@ -199,6 +208,35 @@ __device__ __forceinline__ float group_sum(float v, int G) {
   for (int off = G >> 1; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off, G);
   return v;
+}
+
+// One round of warp_reduce_scatter32: the lanes whose bit H is set keep
+// the upper H of their 2H values, the others the lower H, and each adds
+// the partner's copy of the half it keeps (the partner is H lanes away).
+// H is a template argument so that every index is known at compile time
+// and v stays in registers; the halves are picked by bit masks, since
+// `up ? v[i] : v[i + H]` may be compiled as a choice of address.
+template <int H>
+__device__ __forceinline__ void reduce_scatter_round(float (&v)[32]) {
+  const unsigned up = 0u - ((threadIdx.x / H) & 1u);  // all ones if bit H
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const unsigned lo = __float_as_uint(v[i]), hi = __float_as_uint(v[i + H]);
+    const float send = __uint_as_float((lo & up) | (hi & ~up));
+    const float keep = __uint_as_float((hi & up) | (lo & ~up));
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+  if constexpr (H > 1) reduce_scatter_round<H / 2>(v);
+}
+
+// Reduce-scatter of 32 values over the warp: returns, in lane l, the sum of
+// v[l] over the 32 lanes (16 + 8 + 4 + 2 + 1 = 31 shuffles for 32 sums,
+// where 32 warp sums would take 160).  The sums run in a fixed order, so
+// the result is deterministic.  Every lane of the warp must call it, with
+// threadIdx.x % 32 its lane; v is clobbered.
+__device__ __forceinline__ float warp_reduce_scatter32(float (&v)[32]) {
+  reduce_scatter_round<16>(v);
+  return v[0];
 }
 
 // The four dots of outer row s (value ov_s, step od_s: d2 floats each)

@@ -13,29 +13,50 @@
 //   g_vl[z] += W_A0 x_t + W_dA0 dx_t    g_dl[z] += W_dZA x_t + W_ddA dx_t
 //   g_xv[t] += W_A0 v_z + W_dZA dv_z    g_xd[t] += W_dA0 v_z + W_ddA dv_z.
 //
-// S_{j-1}(t) is needed at every t.  Recovering it by subtracting from the
-// final sum would cancel in f32, so a first forward pass checkpoints S at
-// every chunk boundary (in a global scratch, read back by the thread that
-// wrote it), and the backward pass takes the chunks in reverse order,
-// re-sweeping each from its checkpoint to have S_{j-1}(t) exact before one
-// warp carries the adjoint sums back through it.  The sweep bounds are K3's: with difference the last step (dx = 0)
-// is excluded, so repeat padding stays exact and gets no gradient.
+// Each S_j is an exclusive prefix sum over time once S_{j-1} is known, and
+// each Rbar_{j-1} a reversed one once Rbar_j is: so both sweeps run as
+// block-wide scans over a chunk's time steps, one round per slot of the
+// chain (M - 1 rounds forward, M - 1 in reverse; the levels' chains run in
+// the same rounds), each step's thread adding the chunk's earlier (later)
+// steps from shared memory to the carry of the chunks before (after) it.
+// A block owns one example n and 32 inducing tensors (one per lane); its 8
+// warps own the 8 steps of a chunk, so every warp works in every phase:
+//   1. the chunk's slot Grams and their partials, a run of (slot, step)
+//      items per warp in slot-major order, so a slot's inducing rows are
+//      held in registers for the run and each step's rows x_t, dx_t read
+//      as broadcast float4s, into shared memory;
+//   2. the scans, each thread for its step;
+//   3. the weights of its step and the x-side gradient of its step, summed
+//      over the 32 lanes by a shuffle reduce-scatter
+//      (common.cuh::warp_reduce_scatter32) into a slab per block of lanes;
+//   4. the z-side gradient, (half, slot, 8 channels) items spread over the
+//      warps, each a register-tiled product of the chunk's weights with its
+//      rows x_t, dx_t, accumulated over the chunks in a per-example slab.
+// With d2 <= 16 (the benchmark's 16) the block's inducing rows are staged
+// in shared memory once (STAGED; 40 KB at lt = 10); phases 1 and 3 read
+// them there, not through L1 at every use.
+// S_{j-1}(t) is needed in the reverse sweep.  Recovering it by subtracting
+// from a final sum would cancel in f32, so a first pass runs the forward
+// scans alone and checkpoints the carries at every chunk start (a global
+// scratch), and the second pass takes the chunks in reverse, re-scanning
+// each from its checkpoint.  That is why the slot Grams are computed twice
+// when the sequence spans more than one chunk: keeping a sequence's Grams
+// and partials (5 lt floats a step and lane) for the reverse pass would
+// take ~590 KB a block at L = 93, in shared memory or as a global round
+// trip larger than the recompute.  The first pass skips each level's last
+// slot (its Gram feeds no scan: lt - M of the lt Grams), and a sequence
+// that fits one chunk skips the first pass.  The sweep bounds are K3's:
+// with difference the last step (dx = 0) is excluded, so repeat padding
+// stays exact and gets no gradient.
 //
-// What bounds it on the card: per (z, n, t) the lt slot Grams twice (the
-// checkpoint pass and the backward pass: 4 dots of d2 and up to 3
-// transcendentals each) and four weight contractions of d2 -- about 4.6 G
-// FMAs at the training shape (lt=10, d2=16, nZ=500, N=50, L=93), so FMA
-// and transcendental throughput bound it (~0.14 ms at 67 TFLOP/s).  The design
-// keeps K3's grid: a block owns one example n and 32 inducing tensors (one
-// per lane); its 8 warps compute a chunk's slot Grams and partials in
-// parallel into shared memory, warp 0 sweeps, then all warps turn the
-// partials into weights and contract them.  The chunk length is set by the
-// wrapper so that three blocks fit on an SM.  The z-side gradient (a sum
-// over n and t) accumulates over the chunks in a per-example slab, each
-// entry owned by one thread; the x-side (a sum over z and the slots) is a
-// warp reduction over the lanes into a slab per block of 32 lanes.  The wrapper sums both slabs (torch.sum): no atomics,
-// so the result is deterministic.  Edge lanes that recompute column
-// nZ - 1 take a zero cotangent and write no gradient.
+// What bounds it on the card: per (z, n, t) the lt slot Grams (4 dots of d2
+// and up to 3 transcendentals each; twice, see above) and four weight
+// contractions of d2 -- ~4.4 G FMAs of needed work at the training shape
+// (lt=10, d2=16, nZ=500, N=50, L=93), so FMA and transcendental issue
+// bound it (~0.13 ms at 67 TFLOP/s).  The wrapper sums both slabs
+// (torch.sum): no atomics, a fixed order, a deterministic result.  Edge
+// lanes that recompute column nZ - 1 take a zero cotangent and write no
+// gradient.
 //
 // Layouts: vl, dl (lt, d2, nZ) as in K3; xv, xd (N, L, d2); ct
 // (M+1, nZ, N); gz (N, 2, lt, d2, nZ); gx (ceil(nZ/32), N, 2, L, d2);
@@ -45,18 +66,30 @@
 namespace gpsig {
 namespace {
 
-constexpr int kZ = 32;         // inducing tensors per block (lanes)
-constexpr int kTG = 8;         // warps per block
+constexpr int kZ = 32;   // inducing tensors per block (lanes)
+constexpr int kTG = 8;   // warps per block; a chunk has at most kTG steps
 constexpr int kThreads = kZ * kTG;
+constexpr int kCB = 8;   // channels per z-side item
 
-// shared floats for a chunk of tc steps: the chunk's x_t, dx_t; G then
-// Gbar; 4 partials then weights; the exclusive sums S
-inline int kzx_bwd_smem_floats(int lt, int d2, int tc) {
-  return 2 * tc * d2 + 6 * tc * lt * kZ;
+constexpr int kRegD2 = 16;  // d2 up to which a thread holds a slot's rows
+
+// x_t rows in shared memory are padded to a multiple of 4 floats, so a
+// warp reads them as broadcast float4s
+__host__ __device__ inline int kzx_bwd_row_floats(int d2) {
+  return (d2 + 3) & ~3;
 }
 
-template <int M>
-__global__ void __launch_bounds__(kThreads)
+// shared floats for a chunk of tc steps: x_t, dx_t; G (then Gbar); 4
+// partials (then weights); the scan exchange
+inline int kzx_bwd_smem_floats(int lt, int d2, int tc) {
+  return 2 * tc * kzx_bwd_row_floats(d2) + 6 * tc * lt * kZ;
+}
+
+// STAGED: d2 <= kRegD2, the block's inducing rows are staged in shared
+// memory once, and a thread holds the rows of the slot it works on in
+// registers; else they are read through L1 at each use
+template <int M, bool STAGED>
+__global__ void __launch_bounds__(kThreads, 2)
 kzx_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
                const float* __restrict__ xv, const float* __restrict__ xd,
                const float* __restrict__ ct, float* __restrict__ gz,
@@ -68,14 +101,21 @@ kzx_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
   const bool inc = increments != 0, diff = difference != 0;
   const int T = diff ? L - 1 : L;
   const int n_chunks = (T + t_chunk - 1) / t_chunk;
-  float* s_xv = smem;                        // [tc][d2]
-  float* s_xd = s_xv + t_chunk * d2;         // [tc][d2]
-  float* s_g = s_xd + t_chunk * d2;          // [tc][LT][kZ]
+  // channels of a row in shared memory: STAGED pads to kRegD2 with zeros,
+  // so its loops and offsets are compile-time constants
+  const int d2p = STAGED ? kRegD2 : kzx_bwd_row_floats(d2);
+  const int dr = STAGED ? kRegD2 : d2;  // channels of a staged inducing row
+  float* s_xv = smem;                        // [tc][d2p]
+  float* s_xd = s_xv + t_chunk * d2p;        // [tc][d2p]
+  float* s_g = s_xd + t_chunk * d2p;         // [tc][LT][kZ]
   float* s_p = s_g + t_chunk * LT * kZ;      // [tc][LT][4][kZ]
-  float* s_S = s_p + 4 * t_chunk * LT * kZ;  // [tc][LT][kZ]
+  float* s_r = s_p + 4 * t_chunk * LT * kZ;  // [tc][LT][kZ]
+  // the block's inducing rows, [LT][kRegD2][kZ] each, when STAGED
+  float* s_rv = s_r + t_chunk * LT * kZ;
+  float* s_rd = s_rv + LT * kRegD2 * kZ;
 
-  const int lane = threadIdx.x, tg = threadIdx.y;
-  const int tid = tg * kZ + lane;
+  const int lane = threadIdx.x, tt = threadIdx.y;  // this thread's step
+  const int tid = tt * kZ + lane;
   const int z = blockIdx.x * kZ + lane;
   const int n = blockIdx.y;
   const int zc = z < nz ? z : nz - 1;  // edge lanes recompute a live column
@@ -86,74 +126,167 @@ kzx_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
                          n_chunks * LT * kZ;
   // this example's z-side slab, [2][LT][d2][nz]
   float* gz_n = gz + static_cast<size_t>(n) * 2 * LT * d2 * nz;
+  // this block's x-side slab, [2][L][d2]
+  float* gx_b = gx + (static_cast<size_t>(blockIdx.x) * n_ex + n) * 2 * L * d2;
 
-  // the four dots of slot k at chunk step tt, for this lane's column
-  auto dots = [&](int k, int tt, float& a0, float& dza, float& da0,
-                  float& dda) {
-    const float* vk = vl + static_cast<size_t>(k) * d2 * nz + zc;
-    const float* dk = dl + static_cast<size_t>(k) * d2 * nz + zc;
-    const float* xvt = s_xv + tt * d2;
-    const float* xdt = s_xd + tt * d2;
-    a0 = dza = da0 = dda = 0.f;
-    for (int c = 0; c < d2; ++c) {
-      const float v = __ldg(vk + static_cast<size_t>(c) * nz);
-      const float w = __ldg(dk + static_cast<size_t>(c) * nz);
-      const float p = xvt[c], q = xdt[c];
-      a0 = fmaf(v, p, a0);
-      dza = fmaf(w, p, dza);
-      da0 = fmaf(v, q, da0);
-      dda = fmaf(w, q, dda);
+  // the inducing rows of slot k, channel c for this lane
+  const float* rows_v = STAGED ? s_rv : vl;
+  const float* rows_d = STAGED ? s_rd : dl;
+  const int rstride = STAGED ? kZ : nz, roff = STAGED ? lane : zc;
+  if (STAGED) {
+    for (int idx = tid; idx < LT * kRegD2 * kZ; idx += kThreads) {
+      const int k = idx / (kRegD2 * kZ), c = (idx / kZ) % kRegD2, l = idx % kZ;
+      const int zl = min(static_cast<int>(blockIdx.x) * kZ + l, nz - 1);
+      const size_t at = static_cast<size_t>(k * d2 + c) * nz + zl;
+      s_rv[idx] = c < d2 ? vl[at] : 0.f;
+      s_rd[idx] = c < d2 ? dl[at] : 0.f;
     }
+  }
+  auto row_at = [&](int k, int c) {
+    return static_cast<size_t>(k * dr + c) * rstride + roff;
   };
   auto stage = [&](int t0, int tc) {
-    for (int idx = tid; idx < tc * d2; idx += kThreads) {
-      s_xv[idx] = xv_n[static_cast<size_t>(t0) * d2 + idx];
-      s_xd[idx] = xd_n[static_cast<size_t>(t0) * d2 + idx];
+    for (int idx = tid; idx < tc * d2p; idx += kThreads) {
+      const int st = idx / d2p, c = idx % d2p;
+      const size_t at = static_cast<size_t>(t0 + st) * d2 + c;
+      s_xv[idx] = c < d2 ? xv_n[at] : 0.f;
+      s_xd[idx] = c < d2 ? xd_n[at] : 0.f;
     }
   };
-  // K3's order-1 recursion over one step: slots go last to first within a
-  // level so R_j reads S_{j-1} before this step adds to it
-  auto advance = [&](float* S, const float* g) {
-    int k = 0;
+  // slot Grams of the chunk (with their partials when `partials`): each
+  // warp takes a run of (slot, step) items in slot-major order, so a slot's
+  // inducing rows are loaded once for the run (into registers when
+  // STAGED) and each step's x_t, dx_t are read as broadcast float4s.  The
+  // forward scans alone (`partials` false) never read a level's last slot,
+  // so those M slots are skipped there.
+  auto grams = [&](int tc, bool partials) {
+    const int n_slots = partials ? LT : LT - M;
+    const int per = (n_slots * tc + kTG - 1) / kTG;
+    float rv[STAGED ? kRegD2 : 1], rd[STAGED ? kRegD2 : 1];
+    int held = -1;
+    for (int it = tt * per; it < min((tt + 1) * per, n_slots * tc); ++it) {
+      const int st = it % tc;
+      int k = it / tc;  // the k-th slot taken; without partials, skip tops
+      if (!partials) {
 #pragma unroll
-    for (int m = 1; m <= M; ++m) {
-#pragma unroll
-      for (int j = m - 2; j >= 0; --j) {
-        float r = g[(k + j) * kZ];
-        if (j > 0) r *= S[j > 0 ? k + j - 1 : 0];
-        S[k + j] += r;
+        for (int m = 1; m <= M; ++m)
+          if (k >= m * (m - 1) / 2 + m - 1) ++k;
       }
-      k += m;
+      if (STAGED && k != held) {
+#pragma unroll
+        for (int c = 0; c < kRegD2; ++c) {
+          rv[c] = rows_v[row_at(k, c)];
+          rd[c] = rows_d[row_at(k, c)];
+        }
+        held = k;
+      }
+      const float4* xvt = reinterpret_cast<const float4*>(s_xv + st * d2p);
+      const float4* xdt = reinterpret_cast<const float4*>(s_xd + st * d2p);
+      float a0 = 0.f, dza = 0.f, da0 = 0.f, dda = 0.f;
+      if (STAGED) {
+#pragma unroll
+        for (int c4 = 0; c4 < kRegD2 / 4; ++c4) {
+          {
+            const float4 p4 = xvt[c4], q4 = xdt[c4];
+            const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+            const float q[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float v = rv[4 * c4 + e], w = rd[4 * c4 + e];
+              a0 = fmaf(v, p[e], a0);
+              dza = fmaf(w, p[e], dza);
+              da0 = fmaf(v, q[e], da0);
+              dda = fmaf(w, q[e], dda);
+            }
+          }
+        }
+      } else {
+        const float* xs = s_xv + st * d2p;
+        const float* ds = s_xd + st * d2p;
+#pragma unroll 4
+        for (int c = 0; c < d2; ++c) {
+          const float v = rows_v[row_at(k, c)], w = rows_d[row_at(k, c)];
+          a0 = fmaf(v, xs[c], a0);
+          dza = fmaf(w, xs[c], dza);
+          da0 = fmaf(v, ds[c], da0);
+          dda = fmaf(w, ds[c], dda);
+        }
+      }
+      const int sk = st * LT + k;
+      if (partials) {
+        float p[4];
+        s_g[sk * kZ + lane] =
+            slot_gram_zx_partials(a0, dza, da0, dda, base, inc, diff, p);
+#pragma unroll
+        for (int w = 0; w < 4; ++w) s_p[(sk * 4 + w) * kZ + lane] = p[w];
+      } else {
+        s_g[sk * kZ + lane] = slot_gram_zx(a0, dza, da0, dda, base, inc, diff);
+      }
+    }
+  };
+  // sum of s_r[.][k][lane] over the chunk's steps before this one (`part`;
+  // after it when `reverse`) and over all of them (returned), one pass in
+  // step order (reversed when `reverse`)
+  auto chunk_sums = [&](int k, int tc, bool reverse, float& part) {
+    float total = 0.f;
+    part = 0.f;
+    for (int i = 0; i < tc; ++i) {
+      const int u = reverse ? tc - 1 - i : i;
+      if (u == tt) part = total;
+      total += s_r[(u * LT + k) * kZ + lane];
+    }
+    return total;
+  };
+  // the forward scans over the chunk: Sv[k] = S_{j-1} at this step for
+  // slot k = k0 + j of level m (1 for j = 0); S carries each chain's sum
+  // over the chunks before, and gets this chunk's
+  auto forward_scans = [&](int tc, float (&S)[LT], float (&Sv)[LT]) {
+    const bool mine = tt < tc;
+#pragma unroll
+    for (int m = 1; m <= M; ++m) Sv[m * (m - 1) / 2] = 1.f;
+#pragma unroll
+    for (int r = 0; r + 1 < M; ++r) {
+#pragma unroll
+      for (int m = r + 2; m <= M; ++m) {
+        const int k = m * (m - 1) / 2 + r;
+        s_r[(tt * LT + k) * kZ + lane] =
+            mine ? s_g[(tt * LT + k) * kZ + lane] * Sv[k] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int m = r + 2; m <= M; ++m) {
+        const int k = m * (m - 1) / 2 + r;
+        float excl;
+        const float total = chunk_sums(k, tc, false, excl);
+        Sv[k + 1] = S[k] + excl;
+        S[k] += total;
+      }
     }
   };
 
-  // pass 1: the forward sweep, S checkpointed at each chunk start
-  float S[LT];
+  float S[LT], Sv[LT];
 #pragma unroll
-  for (int k = 0; k < LT; ++k) S[k] = 0.f;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int t0 = ch * t_chunk, tc = min(t_chunk, T - t0);
-    __syncthreads();
-    stage(t0, tc);
-    __syncthreads();
-    for (int tt = tg; tt < tc; tt += kTG) {
-#pragma unroll 1
-      for (int k = 0; k < LT; ++k) {
-        float a0, dza, da0, dda;
-        dots(k, tt, a0, dza, da0, dda);
-        s_g[(tt * LT + k) * kZ + lane] =
-            slot_gram_zx(a0, dza, da0, dda, base, inc, diff);
+  for (int k = 0; k < LT; ++k) S[k] = Sv[k] = 0.f;
+
+  // pass 1: the forward scans alone, the carries checkpointed at each
+  // chunk start (not needed when the sweep is one chunk)
+  if (n_chunks > 1) {
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int t0 = ch * t_chunk, tc = min(t_chunk, T - t0);
+      if (tt == 0) {
+#pragma unroll
+        for (int k = 0; k < LT; ++k) ck_b[(ch * LT + k) * kZ + lane] = S[k];
       }
-    }
-    __syncthreads();
-    if (tg == 0) {
-#pragma unroll
-      for (int k = 0; k < LT; ++k) ck_b[(ch * LT + k) * kZ + lane] = S[k];
-      for (int tt = 0; tt < tc; ++tt) advance(S, s_g + tt * LT * kZ + lane);
+      __syncthreads();
+      stage(t0, tc);
+      __syncthreads();
+      grams(tc, false);
+      __syncthreads();
+      forward_scans(tc, S, Sv);
     }
   }
 
-  // pass 2: the chunks in reverse, each re-swept from its checkpoint
+  // pass 2: the chunks in reverse, each re-scanned from its checkpoint
   float U[LT];  // U[k] = sum over later steps of Rbar G of slot k
   float ctm[M + 1];
 #pragma unroll
@@ -163,132 +296,181 @@ kzx_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
     ctm[m] = z < nz ? ct[(static_cast<size_t>(m) * nz + z) * n_ex + n] : 0.f;
   for (int ch = n_chunks - 1; ch >= 0; --ch) {
     const int t0 = ch * t_chunk, tc = min(t_chunk, T - t0);
+    const bool mine = tt < tc;
     __syncthreads();
     stage(t0, tc);
-    __syncthreads();
-    for (int tt = tg; tt < tc; tt += kTG) {
-#pragma unroll 1
-      for (int k = 0; k < LT; ++k) {
-        float a0, dza, da0, dda, p[4];
-        dots(k, tt, a0, dza, da0, dda);
-        const int tk = tt * LT + k;
-        s_g[tk * kZ + lane] =
-            slot_gram_zx_partials(a0, dza, da0, dda, base, inc, diff, p);
 #pragma unroll
-        for (int w = 0; w < 4; ++w) s_p[(tk * 4 + w) * kZ + lane] = p[w];
+    for (int k = 0; k < LT; ++k)
+      S[k] = n_chunks > 1 ? ck_b[(ch * LT + k) * kZ + lane] : 0.f;
+    __syncthreads();
+    grams(tc, true);
+    __syncthreads();
+    forward_scans(tc, S, Sv);
+
+    // the reverse scans: round r takes slot k0 + m - 1 - r of each level m
+    // that has it; Gbar replaces G in s_g, slot by slot, in this thread's
+    // own entries
+    float Rb[M + 1];
+#pragma unroll
+    for (int m = 1; m <= M; ++m) Rb[m] = ctm[m];
+#pragma unroll
+    for (int r = 0; r + 1 < M; ++r) {
+#pragma unroll
+      for (int m = r + 2; m <= M; ++m) {
+        const int k = m * (m - 1) / 2 + (m - 1 - r);
+        float* gk = s_g + (tt * LT + k) * kZ + lane;
+        const float g = mine ? *gk : 0.f;
+        if (mine) *gk = Rb[m] * Sv[k];
+        s_r[(tt * LT + k) * kZ + lane] = Rb[m] * g;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int m = r + 2; m <= M; ++m) {
+        const int k = m * (m - 1) / 2 + (m - 1 - r);
+        float rexcl;
+        const float total = chunk_sums(k, tc, true, rexcl);
+        Rb[m] = U[k] + rexcl;
+        U[k] += total;
       }
     }
-    __syncthreads();
-    if (tg == 0) {
+    if (mine) {
 #pragma unroll
-      for (int k = 0; k < LT; ++k) S[k] = ck_b[(ch * LT + k) * kZ + lane];
-      for (int tt = 0; tt < tc; ++tt) {
+      for (int m = 1; m <= M; ++m)
+        s_g[(tt * LT + m * (m - 1) / 2) * kZ + lane] = Rb[m];
+    }
+
+    // weights of this step, in place, and the x-side gradient of this step
+    if (mine) {
+      for (int k = 0; k < LT; ++k) {
+        const float gbar = s_g[(tt * LT + k) * kZ + lane];
 #pragma unroll
-        for (int k = 0; k < LT; ++k) s_S[(tt * LT + k) * kZ + lane] = S[k];
-        advance(S, s_g + tt * LT * kZ + lane);
+        for (int w = 0; w < 4; ++w)
+          s_p[((tt * LT + k) * 4 + w) * kZ + lane] *= gbar;
       }
-      for (int tt = tc - 1; tt >= 0; --tt) {
-        float* g = s_g + tt * LT * kZ + lane;
-        const float* sp = s_S + tt * LT * kZ + lane;
-        int k = 0;
+      for (int c0 = 0; c0 < dr; c0 += 16) {
+        float vals[32];
 #pragma unroll
-        for (int m = 1; m <= M; ++m) {
-          float rbar = ctm[m];
+        for (int q = 0; q < 32; ++q) vals[q] = 0.f;
+        for (int k = 0; k < LT; ++k) {
+          const float* pw = s_p + (tt * LT + k) * 4 * kZ + lane;
+          const float w0 = pw[0], w1 = pw[kZ];
+          const float w2 = pw[2 * kZ], w3 = pw[3 * kZ];
 #pragma unroll
-          for (int j = m - 1; j >= 0; --j) {
-            const float gk = g[(k + j) * kZ];
-            g[(k + j) * kZ] = j > 0 ? rbar * sp[(j > 0 ? k + j - 1 : 0) * kZ]
-                                    : rbar;  // Gbar in place of G
-            if (j > 0) {
-              const float next = U[k + j];
-              U[k + j] = fmaf(rbar, gk, U[k + j]);
-              rbar = next;
+          for (int cc = 0; cc < 16; ++cc) {
+            const int c = c0 + cc;
+            if (c < dr) {
+              const float v = rows_v[row_at(k, c)], w = rows_d[row_at(k, c)];
+              vals[cc] = fmaf(w0, v, fmaf(w1, w, vals[cc]));
+              vals[16 + cc] = fmaf(w2, v, fmaf(w3, w, vals[16 + cc]));
             }
           }
-          k += m;
+        }
+        const float sum = warp_reduce_scatter32(vals);
+        const int c = c0 + (lane & 15);
+        if (c < d2)
+          gx_b[(static_cast<size_t>(lane >> 4) * L + t0 + tt) * d2 + c] = sum;
+      }
+    }
+    __syncthreads();
+
+    // z side: g_vl pairs (W_A0, W_dA0) with (x, dx), g_dl (W_dZA, W_ddA),
+    // kCB channels an item, x_t and dx_t read as broadcast float4s; the
+    // first chunk (the last in time) writes the slab, the others add to it
+    // (the slab's values are loaded before the products, hiding latency)
+    const int n_cb = (d2 + kCB - 1) / kCB;
+    for (int it = tt; it < 2 * LT * n_cb; it += kTG) {
+      const int half = it / (LT * n_cb), k = (it / n_cb) % LT,
+                cb = it % n_cb;
+      const int wa = half ? 1 : 0, wb = half ? 3 : 2;
+      float* dst = gz_n + ((static_cast<size_t>(half) * LT + k) * d2 +
+                           cb * kCB) * nz + z;
+      const bool first = ch == n_chunks - 1;  // the last chunk in time
+      float acc[kCB];
+#pragma unroll
+      for (int q = 0; q < kCB; ++q)  // issued now, used after the products
+        acc[q] = (!first && z < nz && cb * kCB + q < d2)
+                     ? dst[static_cast<size_t>(q) * nz] : 0.f;
+      for (int u = 0; u < tc; ++u) {
+        const float* pw = s_p + (u * LT + k) * 4 * kZ + lane;
+        const float a = pw[wa * kZ], b = pw[wb * kZ];
+        const float4* xs =
+            reinterpret_cast<const float4*>(s_xv + u * d2p + cb * kCB);
+        const float4* ds =
+            reinterpret_cast<const float4*>(s_xd + u * d2p + cb * kCB);
+#pragma unroll
+        for (int q4 = 0; q4 < kCB / 4; ++q4) {
+          if (cb * kCB + 4 * q4 < d2p) {
+            const float4 x4 = xs[q4], y4 = ds[q4];
+            const float xq[4] = {x4.x, x4.y, x4.z, x4.w};
+            const float yq[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[4 * q4 + e] =
+                  fmaf(a, xq[e], fmaf(b, yq[e], acc[4 * q4 + e]));
+          }
         }
       }
-    }
-    __syncthreads();
-    // weights: partials times the slot cotangent, in place
-    for (int idx = tid; idx < tc * LT * kZ; idx += kThreads) {
-      const int tk = idx / kZ, l = idx % kZ;
-      const float gbar = s_g[idx];
-#pragma unroll
-      for (int w = 0; w < 4; ++w) s_p[(tk * 4 + w) * kZ + l] *= gbar;
-    }
-    __syncthreads();
-    // z side: g_vl pairs (W_A0, W_dA0) with (x, dx), g_dl (W_dZA, W_ddA);
-    // the first chunk (the last in time) writes the slab, the others add
-    for (int e = tg; e < 2 * LT * d2; e += kTG) {
-      const int half = e / (LT * d2), k = (e / d2) % LT, c = e % d2;
-      const int wa = half ? 1 : 0, wb = half ? 3 : 2;
-      float acc = 0.f;
-      for (int tt = 0; tt < tc; ++tt) {
-        const float* pw = s_p + (tt * LT + k) * 4 * kZ + lane;
-        acc = fmaf(pw[wa * kZ], s_xv[tt * d2 + c], acc);
-        acc = fmaf(pw[wb * kZ], s_xd[tt * d2 + c], acc);
-      }
       if (z < nz) {
-        float* dst = gz_n + static_cast<size_t>(e) * nz + z;
-        *dst = ch == n_chunks - 1 ? acc : *dst + acc;
-      }
-    }
-    // x side: g_xv pairs (W_A0, W_dZA) with (v, dv), g_xd (W_dA0, W_ddA)
-    for (int e = tg; e < 2 * tc * d2; e += kTG) {
-      const int half = e / (tc * d2), tt = (e / d2) % tc, c = e % d2;
-      const int wa = half ? 2 : 0, wb = half ? 3 : 1;
-      float acc = 0.f;
-#pragma unroll 1
-      for (int k = 0; k < LT; ++k) {
-        const size_t at = (static_cast<size_t>(k) * d2 + c) * nz + zc;
-        const float* pw = s_p + (tt * LT + k) * 4 * kZ + lane;
-        acc = fmaf(pw[wa * kZ], __ldg(vl + at), acc);
-        acc = fmaf(pw[wb * kZ], __ldg(dl + at), acc);
-      }
 #pragma unroll
-      for (int off = kZ / 2; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0)
-        gx[((static_cast<size_t>(blockIdx.x) * n_ex + n) * 2 + half) * L * d2 +
-           static_cast<size_t>(t0 + tt) * d2 + c] = acc;
+        for (int q = 0; q < kCB; ++q)
+          if (cb * kCB + q < d2) dst[static_cast<size_t>(q) * nz] = acc[q];
+      }
     }
   }
 
   if (n_chunks == 0 && z < nz) {
-    for (int e = tg; e < 2 * LT * d2; e += kTG)
+    for (int e = tt; e < 2 * LT * d2; e += kTG)
       gz_n[static_cast<size_t>(e) * nz + z] = 0.f;
   }
   // steps past the sweep get no gradient
   for (int idx = tid; idx < 2 * (L - T) * d2; idx += kThreads) {
     const int half = idx / ((L - T) * d2), rem = idx % ((L - T) * d2);
-    gx[((static_cast<size_t>(blockIdx.x) * n_ex + n) * 2 + half) * L * d2 +
-       static_cast<size_t>(T) * d2 + rem] = 0.f;
+    gx_b[static_cast<size_t>(half) * L * d2 + static_cast<size_t>(T) * d2 +
+         rem] = 0.f;
   }
 }
 
+template <int M, bool STAGED>
+cudaError_t launch_kzx_bwd_rows(const float* vl, const float* dl,
+                                const float* xv, const float* xd,
+                                const float* ct, float* gz, float* gx,
+                                float* ck, int nz, int n_ex, int L, int d2,
+                                int base, int increments, int difference,
+                                int t_chunk, cudaStream_t stream) {
+  constexpr int LT = M * (M + 1) / 2;
+  const int smem = (kzx_bwd_smem_floats(LT, STAGED ? kRegD2 : d2, t_chunk) +
+                    (STAGED ? 2 * LT * kRegD2 * kZ : 0)) *
+                   static_cast<int>(sizeof(float));
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kzx_bwd_kernel<M, STAGED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 block(kZ, kTG);
+  const dim3 grid((nz + kZ - 1) / kZ, n_ex);
+  kzx_bwd_kernel<M, STAGED><<<grid, block, smem, stream>>>(
+      vl, dl, xv, xd, ct, gz, gx, ck, nz, n_ex, L, d2, t_chunk, base,
+      increments, difference);
+  return cudaGetLastError();
+}
+
+// The staged kernel where the wrapper staged the rows (they fit in shared
+// memory) and d2 <= kRegD2; else the one that reads them through L1.
 template <int M>
 cudaError_t launch_kzx_bwd(const float* vl, const float* dl, const float* xv,
                            const float* xd, const float* ct, float* gz,
                            float* gx, float* ck, int nz, int n_ex, int L,
                            int d2, int base, int increments, int difference,
-                           int t_chunk, cudaStream_t stream) {
-  constexpr int LT = M * (M + 1) / 2;
-  const int smem = kzx_bwd_smem_floats(LT, d2, t_chunk) *
-                   static_cast<int>(sizeof(float));
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kzx_bwd_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 block(kZ, kTG);
-  const dim3 grid((nz + kZ - 1) / kZ, n_ex);
-  kzx_bwd_kernel<M><<<grid, block, smem, stream>>>(
-      vl, dl, xv, xd, ct, gz, gx, ck, nz, n_ex, L, d2, t_chunk, base,
-      increments, difference);
-  return cudaGetLastError();
+                           int t_chunk, int stage_rows, cudaStream_t stream) {
+  if (stage_rows && d2 <= kRegD2)
+    return launch_kzx_bwd_rows<M, true>(vl, dl, xv, xd, ct, gz, gx, ck, nz,
+                                        n_ex, L, d2, base, increments,
+                                        difference, t_chunk, stream);
+  return launch_kzx_bwd_rows<M, false>(vl, dl, xv, xd, ct, gz, gx, ck, nz,
+                                       n_ex, L, d2, base, increments,
+                                       difference, t_chunk, stream);
 }
 
 }  // namespace
@@ -299,11 +481,14 @@ extern "C" int gpsig_kzx_bwd(const float* vl, const float* dl,
                              const float* ct, float* gz, float* gx,
                              float* ck, int lt, int nz, int n_ex, int L,
                              int d2, int num_levels, int base, int increments,
-                             int difference, int t_chunk, void* stream) {
+                             int difference, int t_chunk, int stage_rows,
+                             void* stream) {
   if (lt != num_levels * (num_levels + 1) / 2 || nz <= 0 || n_ex <= 0 ||
-      n_ex > 65535 || L <= 0 || d2 <= 0 || t_chunk <= 0)
+      n_ex > 65535 || L <= 0 || d2 <= 0 || t_chunk <= 0 ||
+      t_chunk > gpsig::kTG)
     return static_cast<int>(cudaErrorInvalidValue);
   GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_kzx_bwd, vl, dl, xv, xd, ct,
                       gz, gx, ck, nz, n_ex, L, d2, base, increments,
-                      difference, t_chunk, static_cast<cudaStream_t>(stream))
+                      difference, t_chunk, stage_rows,
+                      static_cast<cudaStream_t>(stream))
 }

@@ -9,284 +9,507 @@
 // with P^T(Y)[s, t] = sum_{s'>s, t'>t} Y[s', t'] the reversed exclusive
 // prefix.  Mbar then pulls back through the increment algebra: the weights
 // W = Mbar * dM/d(a00, d01, d10, dxx) (common.cuh::slot_gram_zz_partials)
-// give the row side g_v[s] += W_a00 w_t + W_d01 dw_t, g_dv[s] += W_d10 w_t +
-// W_dxx dw_t (:1020-1034).
+// give both sides' gradients (:1020-1034):
+//   outer row s:  g_ov[s] += W_a00 iv_t + W_d01 id_t,
+//                 g_od[s] += W_d10 iv_t + W_dxx id_t,
+//   inner step t: g_iv[t] += W_a00 ov_s + W_d10 od_s,
+//                 g_id[t] += W_d01 ov_s + W_dxx od_s.
 //
-// One launch does both sides: its first N1 * splits0 blocks take the first
-// argument's rows as the outer rows, the rest the second's.  Each side runs
-// K5's sweep over its outer rows for every pair it takes and returns the
-// gradient of those rows only, so the reduction over the inner steps is a
-// reduction over lanes, and over the inner sequences a reduction over the
-// groups of a warp: no thread ever sums into another's memory.  The sweep
-// forward stores, per row, the column sums C (the state the reverse sweep
-// needs) into a per-thread global scratch, so C_m[s, .] is read back exact;
-// it is never recovered by subtracting from a total.  The reverse sweep
-// carries, per level, D_m[t] = sum_{s'>s} (M * Rbar_{m+1})[s', t] and takes
-// P^T as a reversed exclusive scan of D_m over the lanes.  Each row's
-// gradient is reduced over the warp through shared memory (each lane sums
-// one of 32 channels) and added into the warp's own slab; the wrapper sums
-// the slabs with torch.sum.  No atomics: the result is deterministic.
+// One sweep per pair, in K5's layout: the shorter sequence on the inner
+// axis (a group of G lanes, lane lg owning steps lg + j G, j < cpl, so at
+// most 128 steps), the longer on the outer axis at any length.  The sweep
+// runs forward once, storing each row's incoming column sums C (the state
+// the reverse needs, read back exact, never recovered by subtraction), and
+// then in reverse once, carrying per level D_m[t] = sum_{s'>s} (M *
+// Rbar_{m+1})[s', t] and taking P^T as a reversed exclusive scan over the
+// group.  Both arguments' gradients come out of that one pair of sweeps.
+//
+// Work split: a warp owns a "set" of 32 / G inner sequences (one per group)
+// and a range of outer sequences, and takes every (outer, set) pair of it
+// in turn; all groups of a warp sweep the same outer rows in lock step.
+//   * The inner rows of the set are staged once in a per-warp workspace,
+//     and the inner steps' gradients accumulate there over every outer row
+//     of the range; the warp writes them once, into a slab per (inner
+//     sequence, range).
+//   * Each outer row's gradient (2 d2 values a lane) is summed over the
+//     warp -- the group's G lanes and the set's sequences -- by a shuffle
+//     reduce-scatter (common.cuh::warp_reduce_scatter32), and written once
+//     into a slab per (outer sequence, set).
+//   The wrapper sums both slabs with torch.sum: no atomics, a fixed order,
+//   a deterministic result.  The workspace (inner rows, inner gradients)
+//   and the column-sum store live in shared memory where they fit, else in
+//   a global scratch (the wrapper picks; the addressing is the same).
+//   * With one inner step a lane (inner length <= 32: Kzz and Kzx of the
+//     inducing-sequences model, 4 steps) four outer rows go together: their
+//     dots, partials and contractions are independent (only the level
+//     carries are serial), so they overlap, and each load of an inner value
+//     or an inner gradient serves the four.  Longer inner sequences (up to
+//     kSeqCols steps a lane) take one row at a time.  Outer rows are read
+//     as broadcast float4s.
 //
 // Symmetric mode (one set of sequences, K5 computed each unordered pair
 // once and mirrored it): the wrapper folds the cotangent onto the upper
-// triangle (ct + ct^T off the diagonal), side 0 takes the pairs with inner
-// >= outer and side 1 those with inner <= outer.
+// triangle (ct + ct^T off the diagonal) and a warp takes only the pairs
+// with inner >= outer.
 //
 // What bounds it on the card: per entry K5's dots and transcendentals twice
-// (forward sweep and reverse sweep), the partials, and four weight
-// contractions of d2 -- about 2.5x K5's FMAs on each side, so 5x K5 in all
-// -- plus the per-row warp reductions through shared memory.
+// (the forward and the reverse sweep), the partials, and 8 d2 FMAs of
+// weight contraction -- ~16 d2 + 30 FMAs, of which 12 d2 are the work the
+// function needs -- read from shared memory at ~8 d2 loads and stores an
+// entry; plus the column-sum store (4 (M-1) bytes an entry each way).
 //
-// Layouts: lv, ld (N1, L1, d2) and rv, rd (N2, L2, d2); the same transposed
-// as lvT, ldT (N1, d2, L1), rvT, rdT (N2, d2, L2); ct (M+1, N1, N2); slabs
-// g1 (N1, splits0, 4, T1, 2, d2) and g2 (N2, splits1, 4, T2, 2, d2), zeroed
-// by the wrapper, T = L - 1 with difference, else L; scratch per side
-// (T, M-1, cpl, threads of the side).
+// Layouts: ov, od (N_out, L_out, d2) and iv, id (N_in, L_in, d2), the outer
+// and inner arguments (the wrapper's `swap` says which is the first); ct
+// (M+1, N1, N2); slabs g_out (N_out, sets, To, 2, d2) and g_in (N_in,
+// ranges, Ti, 2, d2), T = L - 1 with difference, else L; workspace per
+// warp [2][d2][cpl][32] inner rows then [2][d2][cpl][32] inner gradients,
+// column sums [To][M-1][cpl][32].
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace gpsig {
 namespace {
 
-template <int M>
-__global__ void __launch_bounds__(kSeqThreads)
-seq_bwd_kernel(const float* __restrict__ lv, const float* __restrict__ ld,
-               const float* __restrict__ rv, const float* __restrict__ rd,
-               const float* __restrict__ lvT, const float* __restrict__ ldT,
-               const float* __restrict__ rvT, const float* __restrict__ rdT,
-               const float* __restrict__ ct, float* __restrict__ g1,
-               float* __restrict__ g2, float* __restrict__ scratch, int n1,
-               int L1, int n2, int L2, int d2, int base, int difference,
-               int symmetric, int G0, int cpl0, int splits0, int G1,
-               int cpl1, int splits1) {
-  constexpr int MC = M > 1 ? M - 1 : 1;
-  __shared__ float red[kSeqWarps][32][33];
-  const bool diff = difference != 0, sym = symmetric != 0;
-  const int nb0 = n1 * splits0;
-  const bool side1 = static_cast<int>(blockIdx.x) >= nb0;
-  const int blk = side1 ? blockIdx.x - nb0 : blockIdx.x;
-  // this side's roles: outer rows (o), inner rows transposed (i)
-  const float* ov = side1 ? rv : lv;
-  const float* od = side1 ? rd : ld;
-  const float* ivT = side1 ? lvT : rvT;
-  const float* idT = side1 ? ldT : rdT;
-  const int n_in = side1 ? n1 : n2;
-  const int L_out = side1 ? L2 : L1, L_in = side1 ? L1 : L2;
-  const int G = side1 ? G1 : G0, cpl = side1 ? cpl1 : cpl0;
-  const int splits = side1 ? splits1 : splits0;
-  const int To = diff ? L_out - 1 : L_out;
-  const int Ti = diff ? L_in - 1 : L_in;
-  const int To0 = diff ? L1 - 1 : L1;
-  float* scr = scratch + (side1 ? static_cast<size_t>(nb0) * kSeqThreads *
-                                      To0 * (M - 1) * cpl0
-                                : 0);
-  const size_t nthreads =
-      static_cast<size_t>(side1 ? n2 * splits1 : nb0) * kSeqThreads;
-  const size_t gtid = static_cast<size_t>(blk) * kSeqThreads + threadIdx.x;
+constexpr int kWarpsPerBlock = kSeqWarps;
 
-  const int o = blk / splits, split = blk % splits;
-  const int lg = threadIdx.x % G, gi = threadIdx.x / G;
-  const int gpb = kSeqThreads / G;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  int lo, hi;
-  seq_inner_range(o, split, splits, n_in, sym, !side1, lo, hi);
-  const float* ov_o = ov + static_cast<size_t>(o) * L_out * d2;
-  const float* od_o = od + static_cast<size_t>(o) * L_out * d2;
-  float* slab = (side1 ? g2 : g1) +
-                ((static_cast<size_t>(o) * splits + split) * kSeqWarps +
-                 warp) * To * 2 * d2;
-  const size_t plane = static_cast<size_t>(n1) * n2;
-  int col[kSeqCols];
+// Four consecutive values p[c .. c+3] of an outer row (zeros past d2): one
+// broadcast float4 load when the rows are 16-byte aligned (vec4).
+__device__ __forceinline__ void outer4(const float* __restrict__ p, int c,
+                                       int d2, bool vec4, float (&v)[4]) {
+  if (vec4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p + c));
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
 #pragma unroll
-  for (int j = 0; j < kSeqCols; ++j) col[j] = min(lg + j * G, L_in - 1);
+    for (int e = 0; e < 4; ++e) v[e] = c + e < d2 ? __ldg(p + c + e) : 0.f;
+  }
+}
 
-  for (int i0 = lo; i0 < hi; i0 += gpb) {
-    const int i = i0 + gi;
-    const bool live = i < hi;
-    const int ic = live ? i : lo;
-    const size_t inner = static_cast<size_t>(ic) * d2 * L_in;
-    const size_t pair = side1 ? static_cast<size_t>(ic) * n2 + o
-                              : static_cast<size_t>(o) * n2 + ic;
-    float g[M + 1];
+// The four dots of R outer rows (srow[r] of ov_o, od_o) against the lane's
+// inner steps, staged at in_v / in_d as [c][j][lane]; each inner value is
+// read once for the R rows, each outer value as part of a float4.  Without
+// difference only a00 is formed.
+template <int CPL, int R>
+__device__ __forceinline__ void seq_rows_dots(
+    const float* __restrict__ ov_o, const float* __restrict__ od_o,
+    const int (&srow)[R], const float* in_v, const float* in_d, int d2,
+    int cstride, int cpl, int lane, bool diff, bool vec4,
+    float (&a00)[R][CPL], float (&d01)[R][CPL], float (&d10)[R][CPL],
+    float (&dxx)[R][CPL]) {
 #pragma unroll
-    for (int m = 0; m <= M; ++m) g[m] = live ? ct[m * plane + pair] : 0.f;
-
-    // forward sweep, storing each row's incoming column sums
-    float Cs[MC][kSeqCols];
+  for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int k = 0; k < MC; ++k)
+    for (int j = 0; j < CPL; ++j)
+      a00[r][j] = d01[r][j] = d10[r][j] = dxx[r][j] = 0.f;
+  for (int c = 0; c < d2; c += 4) {
+    float x[4][CPL], y[4][CPL];
 #pragma unroll
-      for (int j = 0; j < kSeqCols; ++j) Cs[k][j] = 0.f;
-    for (int s = 0; s < To; ++s) {
+    for (int e = 0; e < 4; ++e)
 #pragma unroll
-      for (int k = 0; k < M - 1; ++k)
-#pragma unroll
-        for (int j = 0; j < kSeqCols; ++j)
-          if (j < cpl)
-            scr[((static_cast<size_t>(s) * (M - 1) + k) * cpl + j) *
-                    nthreads + gtid] = Cs[k][j];
-      if (M == 1) continue;
-      float a00[kSeqCols], d01[kSeqCols], d10[kSeqCols], dxx[kSeqCols];
-      seq_row_dots(ov_o + static_cast<size_t>(s) * d2,
-                   od_o + static_cast<size_t>(s) * d2, ivT + inner,
-                   idT + inner, L_in, d2, lg, G, cpl, diff, a00, d01, d10,
-                   dxx);
-      float Mv[kSeqCols];
-#pragma unroll
-      for (int j = 0; j < kSeqCols; ++j)
-        Mv[j] = (j < cpl && lg + j * G < Ti)
-                    ? slot_gram_zz(a00[j], d01[j], d10[j], dxx[j], base, diff)
-                    : 0.f;
-      float P[MC][kSeqCols];
-#pragma unroll
-      for (int m = 2; m < M; ++m) group_excl_scan(Cs[m - 2], P[m - 2], cpl, lg, G);
-#pragma unroll
-      for (int j = 0; j < kSeqCols; ++j) {
-        Cs[0][j] += Mv[j];
-#pragma unroll
-        for (int m = 2; m < M; ++m) Cs[m - 1][j] += Mv[j] * P[m - 2][j];
-      }
-    }
-
-    // reverse sweep
-    float D[MC][kSeqCols];
-#pragma unroll
-    for (int k = 0; k < MC; ++k)
-#pragma unroll
-      for (int j = 0; j < kSeqCols; ++j) D[k][j] = 0.f;
-    for (int s = To - 1; s >= 0; --s) {
-#pragma unroll
-      for (int k = 0; k < M - 1; ++k)
-#pragma unroll
-        for (int j = 0; j < kSeqCols; ++j)
-          Cs[k][j] = j < cpl
-                         ? scr[((static_cast<size_t>(s) * (M - 1) + k) * cpl +
-                                j) * nthreads + gtid]
-                         : 0.f;
-      float P[MC][kSeqCols];
-#pragma unroll
-      for (int m = 2; m <= M; ++m) group_excl_scan(Cs[m - 2], P[m - 2], cpl, lg, G);
-
-      float a00[kSeqCols], d01[kSeqCols], d10[kSeqCols], dxx[kSeqCols];
-      seq_row_dots(ov_o + static_cast<size_t>(s) * d2,
-                   od_o + static_cast<size_t>(s) * d2, ivT + inner,
-                   idT + inner, L_in, d2, lg, G, cpl, diff, a00, d01, d10,
-                   dxx);
-      float Mv[kSeqCols], W[4][kSeqCols];
-#pragma unroll
-      for (int j = 0; j < kSeqCols; ++j) {
-        float p[4];
-        const bool ok = j < cpl && lg + j * G < Ti;
-        Mv[j] = slot_gram_zz_partials(a00[j], d01[j], d10[j], dxx[j], base,
-                                      diff, p);
-        if (!ok) Mv[j] = p[0] = p[1] = p[2] = p[3] = 0.f;
-#pragma unroll
-        for (int w = 0; w < 4; ++w) W[w][j] = p[w];
-      }
-      // Rbar_m at this row, m = M .. 1, from D (rows > s)
-      float Rb[M + 1][kSeqCols];
-#pragma unroll
-      for (int j = 0; j < kSeqCols; ++j) Rb[M][j] = g[M];
-#pragma unroll
-      for (int m = M - 1; m >= 1; --m) {
-        float t[kSeqCols];
-        group_rev_excl_scan(D[m - 1], t, cpl, lg, G);
-#pragma unroll
-        for (int j = 0; j < kSeqCols; ++j) Rb[m][j] = g[m] + t[j];
+      for (int j = 0; j < CPL; ++j) {
+        const bool ok = j < cpl && c + e < d2;
+        const int at = (c + e) * cstride + j * 32 + lane;
+        x[e][j] = ok ? in_v[at] : 0.f;
+        y[e][j] = (diff && ok) ? in_d[at] : 0.f;
       }
 #pragma unroll
-      for (int j = 0; j < kSeqCols; ++j) {
-        float mbar = Rb[1][j];
+    for (int r = 0; r < R; ++r) {
+      float a[4], b[4];
+      outer4(ov_o + srow[r] * d2, c, d2, vec4, a);
 #pragma unroll
-        for (int m = 2; m <= M; ++m) mbar = fmaf(P[m - 2][j], Rb[m][j], mbar);
+      for (int e = 0; e < 4; ++e)
 #pragma unroll
-        for (int m = 1; m < M; ++m) D[m - 1][j] = fmaf(Mv[j], Rb[m + 1][j], D[m - 1][j]);
+        for (int j = 0; j < CPL; ++j)
+          a00[r][j] = fmaf(a[e], x[e][j], a00[r][j]);
+      if (diff) {
+        outer4(od_o + srow[r] * d2, c, d2, vec4, b);
 #pragma unroll
-        for (int w = 0; w < 4; ++w) W[w][j] *= mbar;
-      }
-
-      // this row's gradient: g_v = W_a00 w + W_d01 dw, g_dv = W_d10 w +
-      // W_dxx dw, summed over the lane's steps, then over the warp
-      for (int c0 = 0; c0 < d2; c0 += 16) {
+        for (int e = 0; e < 4; ++e)
 #pragma unroll
-        for (int cc = 0; cc < 16; ++cc) {
-          const int c = c0 + cc;
-          float pv = 0.f, pd = 0.f;
-          if (c < d2) {
-            const float* xr = ivT + inner + static_cast<size_t>(c) * L_in;
-            const float* yr = idT + inner + static_cast<size_t>(c) * L_in;
-#pragma unroll
-            for (int j = 0; j < kSeqCols; ++j) {
-              if (j < cpl) {
-                const float x = __ldg(xr + col[j]);
-                pv = fmaf(W[0][j], x, pv);
-                pd = fmaf(W[2][j], x, pd);
-                if (diff) {
-                  const float y = __ldg(yr + col[j]);
-                  pv = fmaf(W[1][j], y, pv);
-                  pd = fmaf(W[3][j], y, pd);
-                }
-              }
-            }
+          for (int j = 0; j < CPL; ++j) {
+            d01[r][j] = fmaf(a[e], y[e][j], d01[r][j]);
+            d10[r][j] = fmaf(b[e], x[e][j], d10[r][j]);
+            dxx[r][j] = fmaf(b[e], y[e][j], dxx[r][j]);
           }
-          red[warp][cc][lane] = pv;
-          red[warp][16 + cc][lane] = pd;
-        }
-        __syncwarp();
-        float sum = 0.f;
-#pragma unroll 8
-        for (int l = 0; l < 32; ++l) sum += red[warp][lane][l];
-        const int c = c0 + (lane & 15);
-        if (c < d2)
-          slab[static_cast<size_t>(s) * 2 * d2 + (lane >> 4) * d2 + c] += sum;
-        __syncwarp();
       }
     }
   }
 }
 
-template <int M>
-cudaError_t launch_seq_bwd(const float* lv, const float* ld, const float* rv,
-                           const float* rd, const float* lvT,
-                           const float* ldT, const float* rvT,
-                           const float* rdT, const float* ct, float* g1,
-                           float* g2, float* scratch, int n1, int L1, int n2,
-                           int L2, int d2, int base, int difference,
-                           int symmetric, int G0, int cpl0, int splits0,
-                           int G1, int cpl1, int splits1,
-                           cudaStream_t stream) {
-  const dim3 grid(n1 * splits0 + n2 * splits1);
-  seq_bwd_kernel<M><<<grid, kSeqThreads, 0, stream>>>(
-      lv, ld, rv, rd, lvT, ldT, rvT, rdT, ct, g1, g2, scratch, n1, L1, n2,
-      L2, d2, base, difference, symmetric, G0, cpl0, splits0, G1, cpl1,
-      splits1);
+// CPL: the lane's register slots for inner steps (cpl <= CPL); R: outer rows
+// taken together, whose dots, partials and contractions are independent
+// (only the level carries are serial), so they overlap and share each load
+// of an inner value and of an inner gradient; D2: d2 as a compile-time
+// constant (the benchmark's 16), or 0 for any d2.
+template <int M, int CPL, int R, int D2>
+__global__ void __launch_bounds__(kSeqThreads)
+seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
+               const float* __restrict__ iv, const float* __restrict__ id,
+               const float* __restrict__ ct, float* __restrict__ g_out,
+               float* __restrict__ g_in, float* __restrict__ gscratch,
+               int n_out, int L_out, int n_in, int L_in, int d2, int base,
+               int difference, int symmetric, int swap, int G, int cpl,
+               int n_ranges, int ws_mode, int vec4) {
+  if (D2 > 0) d2 = D2;  // the launcher checked d2 == D2
+  constexpr int MC = M > 1 ? M - 1 : 1;
+  constexpr int CB = 16 / R;  // channels a contraction round: R x 2 x CB = 32
+  extern __shared__ float smem[];
+  const bool diff = difference != 0, sym = symmetric != 0;
+  const int To = diff ? L_out - 1 : L_out;
+  const int Ti = diff ? L_in - 1 : L_in;
+  const int gps = 32 / G;  // inner sequences a warp holds
+  const int n_sets = (n_in + gps - 1) / gps;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = blockIdx.x * kWarpsPerBlock + warp;
+  if (wg >= n_sets * n_ranges) return;  // whole warps only: no block sync
+  const int set = wg % n_sets, range = wg / n_sets;
+  const int lg = lane % G, gi = lane / G;
+  const int i = set * gps + gi;
+  const bool live_i = i < n_in;
+
+  // this warp's workspace and column-sum store, in shared or global memory
+  const int ws_floats = 4 * d2 * cpl * 32;
+  const int cs_floats = To * (M - 1) * cpl * 32;
+  float* ws;
+  float* cs;
+  if (ws_mode == 0) {
+    ws = smem + warp * (ws_floats + cs_floats);
+    cs = ws + ws_floats;
+  } else if (ws_mode == 1) {
+    ws = smem + warp * ws_floats;
+    cs = gscratch + static_cast<size_t>(wg) * cs_floats;
+  } else {
+    ws = gscratch + static_cast<size_t>(wg) * (ws_floats + cs_floats);
+    cs = ws + ws_floats;
+  }
+  const int cstride = cpl * 32;  // [c][j][lane]: each lane its own slots
+  float* in_v = ws;
+  float* in_d = in_v + d2 * cstride;
+  float* acc_v = in_d + d2 * cstride;
+  float* acc_d = acc_v + d2 * cstride;
+
+  // stage the set's inner rows (zeros past the sequence or the set)
+  for (int j = 0; j < cpl; ++j) {
+    const int t = lg + j * G;
+    const bool ok = live_i && t < L_in;
+    const size_t row = (static_cast<size_t>(ok ? i : 0) * L_in +
+                        (ok ? t : 0)) * d2;
+    for (int c = 0; c < d2; ++c) {
+      const int at = c * cstride + j * 32 + lane;
+      in_v[at] = ok ? __ldg(iv + row + c) : 0.f;
+      in_d[at] = ok ? __ldg(id + row + c) : 0.f;
+      acc_v[at] = 0.f;
+      acc_d[at] = 0.f;
+    }
+  }
+
+  // outer sequences of this range: all of them, or in symmetric mode those
+  // that meet an inner sequence of the set at or after them
+  const int hi_o = sym ? min(n_out, (set + 1) * gps) : n_out;
+  const int per = (hi_o + n_ranges - 1) / n_ranges;
+  const int o_lo = range * per, o_hi = min(o_lo + per, hi_o);
+  const size_t plane = static_cast<size_t>(n_out) * n_in;
+  auto inner_ok = [&](int j) { return j < cpl && lg + j * G < Ti; };
+
+  for (int o = o_lo; o < o_hi; ++o) {
+    const bool live = live_i && (!sym || i >= o);
+    const size_t pair = swap ? static_cast<size_t>(live ? i : 0) * n_out + o
+                             : static_cast<size_t>(o) * n_in + (live ? i : 0);
+    float g[M + 1];
+#pragma unroll
+    for (int m = 0; m <= M; ++m) g[m] = live ? ct[m * plane + pair] : 0.f;
+    const float* ov_o = ov + static_cast<size_t>(o) * L_out * d2;
+    const float* od_o = od + static_cast<size_t>(o) * L_out * d2;
+    float* gout_o =
+        g_out + (static_cast<size_t>(o) * n_sets + set) * To * 2 * d2;
+
+    // forward sweep: store each row's incoming column sums
+    float Cs[MC][CPL];
+#pragma unroll
+    for (int k = 0; k < MC; ++k)
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) Cs[k][j] = 0.f;
+    if (M > 1) {
+      for (int s0 = 0; s0 < To; s0 += R) {
+        int srow[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) srow[r] = min(s0 + r, To - 1);
+        float a00[R][CPL], d01[R][CPL], d10[R][CPL], dxx[R][CPL];
+        seq_rows_dots<CPL, R>(ov_o, od_o, srow, in_v, in_d, d2, cstride, cpl,
+                              lane, diff, vec4 != 0, a00, d01, d10, dxx);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (s0 + r >= To) break;
+#pragma unroll
+          for (int k = 0; k < M - 1; ++k)
+#pragma unroll
+            for (int j = 0; j < CPL; ++j)
+              if (j < cpl)
+                cs[(((s0 + r) * (M - 1) + k) * cpl + j) * 32 + lane] =
+                    Cs[k][j];
+          float P[MC][CPL];
+#pragma unroll
+          for (int m = 2; m < M; ++m)
+            group_excl_scan(Cs[m - 2], P[m - 2], cpl, lg, G);
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) {
+            const float mv =
+                inner_ok(j) ? slot_gram_zz(a00[r][j], d01[r][j], d10[r][j],
+                                           dxx[r][j], base, diff)
+                            : 0.f;
+            Cs[0][j] += mv;
+#pragma unroll
+            for (int m = 2; m < M; ++m) Cs[m - 1][j] += mv * P[m - 2][j];
+          }
+        }
+      }
+    }
+
+    // reverse sweep, R rows at a time from the last
+    float D[MC][CPL];
+#pragma unroll
+    for (int k = 0; k < MC; ++k)
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) D[k][j] = 0.f;
+    for (int s_hi = To - 1; s_hi >= 0; s_hi -= R) {
+      int srow[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) srow[r] = max(s_hi - r, 0);
+      // P(R_{m-1}) at each row, from the stored column sums
+      float P[R][MC][CPL];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float C[MC][CPL];
+#pragma unroll
+        for (int k = 0; k < MC; ++k)
+#pragma unroll
+          for (int j = 0; j < CPL; ++j)
+            C[k][j] = (k < M - 1 && j < cpl && s_hi - r >= 0)
+                          ? cs[((srow[r] * (M - 1) + k) * cpl + j) * 32 + lane]
+                          : 0.f;
+#pragma unroll
+        for (int m = 2; m <= M; ++m)
+          group_excl_scan(C[m - 2], P[r][m - 2], cpl, lg, G);
+      }
+      float W[R][4][CPL], Mv[R][CPL];
+      {
+        float a00[R][CPL], d01[R][CPL], d10[R][CPL], dxx[R][CPL];
+        seq_rows_dots<CPL, R>(ov_o, od_o, srow, in_v, in_d, d2, cstride, cpl,
+                              lane, diff, vec4 != 0, a00, d01, d10, dxx);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) {
+            float p[4];
+            Mv[r][j] = slot_gram_zz_partials(a00[r][j], d01[r][j], d10[r][j],
+                                             dxx[r][j], base, diff, p);
+            if (!(inner_ok(j) && s_hi - r >= 0))
+              Mv[r][j] = p[0] = p[1] = p[2] = p[3] = 0.f;
+#pragma unroll
+            for (int w = 0; w < 4; ++w) W[r][w][j] = p[w];
+          }
+      }
+      // Mbar from Rbar_M .. Rbar_1, row by row downwards; D (rows > s) is
+      // read before the row adds to it
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float mbar[CPL], prev[CPL];
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          prev[j] = g[M];
+          mbar[j] = M >= 2 ? P[r][M >= 2 ? M - 2 : 0][j] * g[M] : g[M];
+        }
+#pragma unroll
+        for (int m = M - 1; m >= 1; --m) {
+          float t[CPL];
+          group_rev_excl_scan(D[m - 1], t, cpl, lg, G);
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) {
+            const float rb = g[m] + t[j];
+            D[m - 1][j] = fmaf(Mv[r][j], prev[j], D[m - 1][j]);
+            mbar[j] = m >= 2 ? fmaf(P[r][m >= 2 ? m - 2 : 0][j], rb, mbar[j])
+                             : mbar[j] + rb;
+            prev[j] = rb;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < CPL; ++j)
+#pragma unroll
+          for (int w = 0; w < 4; ++w) W[r][w][j] *= mbar[j];
+      }
+
+      // contractions, CB channels of the R rows at a time: the outer rows'
+      // gradients (summed over the warp) and the inner steps' (accumulated)
+      for (int c0 = 0; c0 < d2; c0 += CB) {
+        float vals[32], oa[R][CB], ob[R][CB];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int q4 = 0; q4 < CB; q4 += 4) {
+            float t[4];
+            outer4(ov_o + srow[r] * d2, c0 + q4, d2, vec4 != 0, t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) oa[r][q4 + e] = t[e];
+            if (diff) outer4(od_o + srow[r] * d2, c0 + q4, d2, vec4 != 0, t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) ob[r][q4 + e] = diff ? t[e] : 0.f;
+          }
+#pragma unroll
+        for (int q = 0; q < CB; ++q) {
+          const int c = c0 + q;
+          float gv[R], gd[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) gv[r] = gd[r] = 0.f;
+          if (c < d2) {
+            float a[R], b[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r) a[r] = oa[r][q], b[r] = ob[r][q];
+#pragma unroll
+            for (int j = 0; j < CPL; ++j) {
+              if (j < cpl) {
+                const int at = c * cstride + j * 32 + lane;
+                const float x = in_v[at];
+                float av = acc_v[at];
+#pragma unroll
+                for (int r = 0; r < R; ++r) {
+                  gv[r] = fmaf(W[r][0][j], x, gv[r]);
+                  gd[r] = fmaf(W[r][2][j], x, gd[r]);
+                  av = fmaf(W[r][0][j], a[r], av);
+                }
+                if (diff) {
+                  const float y = in_d[at];
+                  float ad = acc_d[at];
+#pragma unroll
+                  for (int r = 0; r < R; ++r) {
+                    gv[r] = fmaf(W[r][1][j], y, gv[r]);
+                    gd[r] = fmaf(W[r][3][j], y, gd[r]);
+                    av = fmaf(W[r][2][j], b[r], av);
+                    ad = fmaf(W[r][3][j], b[r], fmaf(W[r][1][j], a[r], ad));
+                  }
+                  acc_d[at] = ad;
+                }
+                acc_v[at] = av;
+              }
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            vals[(2 * r) * CB + q] = gv[r];
+            vals[(2 * r + 1) * CB + q] = gd[r];
+          }
+        }
+        const float red = warp_reduce_scatter32(vals);
+        const int r = lane / (2 * CB), half = (lane / CB) & 1;
+        const int c = c0 + lane % CB, s = s_hi - r;
+        if (c < d2 && s >= 0)
+          gout_o[static_cast<size_t>(s) * 2 * d2 + half * d2 + c] = red;
+      }
+    }
+  }
+
+  // the inner steps' gradients of this range, once
+  if (live_i) {
+    float* gin_i =
+        g_in + (static_cast<size_t>(i) * n_ranges + range) * Ti * 2 * d2;
+    for (int j = 0; j < cpl; ++j) {
+      const int t = lg + j * G;
+      if (t >= Ti) continue;
+      for (int c = 0; c < d2; ++c) {
+        const int at = c * cstride + j * 32 + lane;
+        gin_i[static_cast<size_t>(t) * 2 * d2 + c] = acc_v[at];
+        gin_i[static_cast<size_t>(t) * 2 * d2 + d2 + c] = acc_d[at];
+      }
+    }
+  }
+}
+
+template <int M, int CPL, int R, int D2>
+cudaError_t launch_seq_bwd_tiles(const float* ov, const float* od,
+                                 const float* iv, const float* id,
+                                 const float* ct, float* g_out, float* g_in,
+                                 float* gscratch, int n_out, int L_out,
+                                 int n_in, int L_in, int d2, int base,
+                                 int difference, int symmetric, int swap,
+                                 int G, int cpl, int n_ranges, int ws_mode,
+                                 int vec4, cudaStream_t stream) {
+  const int To = difference ? L_out - 1 : L_out;
+  const long long ws = 4LL * d2 * cpl * 32;
+  const long long cs = static_cast<long long>(To) * (M - 1) * cpl * 32;
+  const long long per_warp = ws_mode == 0 ? ws + cs : ws_mode == 1 ? ws : 0;
+  const long long smem = per_warp * kWarpsPerBlock * sizeof(float);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        seq_bwd_kernel<M, CPL, R, D2>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int gps = 32 / G;
+  const long long warps =
+      static_cast<long long>((n_in + gps - 1) / gps) * n_ranges;
+  const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  seq_bwd_kernel<M, CPL, R, D2><<<static_cast<unsigned>(blocks), kSeqThreads,
+                                  static_cast<size_t>(smem), stream>>>(
+      ov, od, iv, id, ct, g_out, g_in, gscratch, n_out, L_out, n_in, L_in, d2,
+      base, difference, symmetric, swap, G, cpl, n_ranges, ws_mode, vec4);
   return cudaGetLastError();
+}
+
+// One inner step a lane (inner length <= 32): four outer rows together,
+// with d2 = 16 (the benchmark's) a compile-time constant; more: one row at
+// a time, with room for kSeqCols steps a lane.  Outer rows are read as
+// float4s when d2 is a multiple of 4 and the rows are aligned.
+template <int M>
+cudaError_t launch_seq_bwd(const float* ov, const float* od, const float* iv,
+                           const float* id, const float* ct, float* g_out,
+                           float* g_in, float* gscratch, int n_out, int L_out,
+                           int n_in, int L_in, int d2, int base,
+                           int difference, int symmetric, int swap, int G,
+                           int cpl, int n_ranges, int ws_mode,
+                           cudaStream_t stream) {
+  const int vec4 = d2 % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(ov) |
+                    reinterpret_cast<uintptr_t>(od)) % 16 == 0;
+  if (cpl == 1 && d2 == 16)
+    return launch_seq_bwd_tiles<M, 1, 4, 16>(
+        ov, od, iv, id, ct, g_out, g_in, gscratch, n_out, L_out, n_in, L_in,
+        d2, base, difference, symmetric, swap, G, cpl, n_ranges, ws_mode,
+        vec4, stream);
+  if (cpl == 1)
+    return launch_seq_bwd_tiles<M, 1, 4, 0>(
+        ov, od, iv, id, ct, g_out, g_in, gscratch, n_out, L_out, n_in, L_in,
+        d2, base, difference, symmetric, swap, G, cpl, n_ranges, ws_mode,
+        vec4, stream);
+  return launch_seq_bwd_tiles<M, kSeqCols, 1, 0>(
+      ov, od, iv, id, ct, g_out, g_in, gscratch, n_out, L_out, n_in, L_in, d2,
+      base, difference, symmetric, swap, G, cpl, n_ranges, ws_mode, vec4,
+      stream);
 }
 
 }  // namespace
 }  // namespace gpsig
 
-extern "C" int gpsig_seq_bwd(const float* lv, const float* ld,
-                             const float* rv, const float* rd,
-                             const float* lvT, const float* ldT,
-                             const float* rvT, const float* rdT,
-                             const float* ct, float* g1, float* g2,
-                             float* scratch, int n1, int L1, int n2, int L2,
-                             int d2, int num_levels, int base, int difference,
-                             int symmetric, int G0, int cpl0, int splits0,
-                             int G1, int cpl1, int splits1, void* stream) {
-  auto bad_group = [](int G, int cpl) {
-    return G <= 0 || G > 32 || (G & (G - 1)) != 0 || cpl <= 0 ||
-           cpl > gpsig::kSeqCols;
-  };
-  if (n1 <= 0 || n2 <= 0 || L1 <= 0 || L2 <= 0 || d2 <= 0 ||
-      bad_group(G0, cpl0) || bad_group(G1, cpl1) || splits0 <= 0 ||
-      splits1 <= 0 ||
-      static_cast<long long>(n1) * splits0 +
-              static_cast<long long>(n2) * splits1 > 2147483647LL ||
-      (symmetric && (n1 != n2 || L1 != L2)))
+extern "C" int gpsig_seq_bwd(const float* ov, const float* od,
+                             const float* iv, const float* id,
+                             const float* ct, float* g_out, float* g_in,
+                             float* gscratch, int n_out, int L_out, int n_in,
+                             int L_in, int d2, int num_levels, int base,
+                             int difference, int symmetric, int swap, int G,
+                             int cpl, int n_ranges, int ws_mode,
+                             void* stream) {
+  const bool pow2 = G > 0 && (G & (G - 1)) == 0;
+  const int To = difference ? L_out - 1 : L_out;
+  const int Ti = difference ? L_in - 1 : L_in;
+  if (n_out <= 0 || n_in <= 0 || To < 0 || Ti < 0 || d2 <= 0 || !pow2 ||
+      G > 32 || cpl <= 0 || cpl > gpsig::kSeqCols || Ti > G * cpl ||
+      n_ranges <= 0 || ws_mode < 0 || ws_mode > 2 ||
+      (symmetric && (n_out != n_in || L_out != L_in || swap)))
     return static_cast<int>(cudaErrorInvalidValue);
-  GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_seq_bwd, lv, ld, rv, rd, lvT,
-                      ldT, rvT, rdT, ct, g1, g2, scratch, n1, L1, n2, L2, d2,
-                      base, difference, symmetric, G0, cpl0, splits0, G1,
-                      cpl1, splits1, static_cast<cudaStream_t>(stream))
+  GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_seq_bwd, ov, od, iv, id, ct,
+                      g_out, g_in, gscratch, n_out, L_out, n_in, L_in, d2,
+                      base, difference, symmetric, swap, G, cpl, n_ranges,
+                      ws_mode, static_cast<cudaStream_t>(stream))
 }

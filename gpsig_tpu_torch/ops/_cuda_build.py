@@ -45,15 +45,15 @@ _SIGNATURES = {
     # splits, tiles_per_split, stream
     "gpsig_kzz_bwd": [_P] * 6 + [_I] * 8 + [_P],
     # vl, dl, xv, xd, ct, gz, gx, ck, lt, nz, n_ex, L, d2, num_levels,
-    # base, increments, difference, t_chunk, stream
-    "gpsig_kzx_bwd": [_P] * 8 + [_I] * 10 + [_P],
+    # base, increments, difference, t_chunk, stage_rows, stream
+    "gpsig_kzx_bwd": [_P] * 8 + [_I] * 11 + [_P],
     # ov, od, ivT, idT, out, n_out, L_out, n_in, L_in, d2, num_levels, base,
     # difference, symmetric, swap, group, cpl, splits, stream
     "gpsig_seq_fwd": [_P] * 5 + [_I] * 13 + [_P],
-    # lv, ld, rv, rd, lvT, ldT, rvT, rdT, ct, g1, g2, scratch, n1, L1, n2,
-    # L2, d2, num_levels, base, difference, symmetric, group0, cpl0,
-    # splits0, group1, cpl1, splits1, stream
-    "gpsig_seq_bwd": [_P] * 12 + [_I] * 15 + [_P],
+    # ov, od, iv, id, ct, g_out, g_in, scratch, n_out, L_out, n_in, L_in,
+    # d2, num_levels, base, difference, symmetric, swap, group, cpl,
+    # ranges, workspace mode, stream
+    "gpsig_seq_bwd": [_P] * 8 + [_I] * 14 + [_P],
 }
 
 

