@@ -9,8 +9,11 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. device: require CUDA, print versions and the card's name and power
-   limit, build the hand-written kernels from ``gpsig_tpu_torch/csrc`` and
-   print the ptxas report (registers, shared memory, spills);
+   limit, build the hand-written kernels from ``gpsig_tpu_torch/csrc`` --
+   the main library (1-8 levels) and, beside it, the ones for 9 and 10
+   levels -- and print each's build time and ptxas's registers and stack
+   frame for K3 and K5 at 4 levels, every kernel at 9 and K3 at 10 (the
+   whole report goes to the details file);
 2. kernels: K1 (Kzz) and K3 (Kzx) on the card at the benchmark shape
    (lt=10, nZ=500, d=14, N=32 and 50, L=93) and at ragged shapes, each held
    against its plain PyTorch version at f32 (<= 1e-5 * max(scale, 1)) and
@@ -20,11 +23,23 @@ and prints no result line):
    many more terms in another order); K5 (seq x seq) and K6 (its backward)
    under the same bounds at the shapes of the inducing-sequences model --
    500 sequences of length 5 (symmetric), 500 x 50 at 5 vs 93 steps, 50 at
-   93 (symmetric), 500 x 50 at 5 vs 205 steps in both argument orders (an
-   outer side past K5/K6's 128 inner steps) -- and ragged 7 x 5 at 11 vs
-   18 (rbf and linear, difference on and off); symmetric outputs must be
-   exactly symmetric, and K4 and K6 launched twice on the same inputs
-   must give bit-identical gradients;
+   93 (symmetric), 500 x 50 at 5 vs 205 steps in both argument orders --
+   at lengths past one inner chunk on both sides: 50 at UWave's 315
+   (symmetric), 20 at the reference runner's max_len 500 (symmetric), 7 x
+   5 at 300 vs WalkvsRun's 1,918 in both orders -- and ragged 7 x 5 at 11
+   vs 18 (rbf and linear, difference on and off); symmetric outputs must
+   be exactly symmetric, and K4 and K6 launched twice on the same inputs
+   must give bit-identical gradients; K3 and K4 at 70,000 examples in one
+   call (32 inducing tensors, L=6; the plain versions on slices of 10,000),
+   and K1-K6 at 9 and 10 levels; each level of a forward level stack and
+   each gradient is held to the bounds at its own scale; then
+   common.cuh's short expm1 (K3's and K5's) against float64 on a dense
+   grid, alone (<= 5 ulp) and in the cancelling slot Gram (<= 16 float32
+   epsilons of its terms); and at PEMS's 963 features, K5/K6 on the Kzz
+   and Kzx of
+   500 length-5 inducing sequences against 50 examples of 144 steps, K1,
+   K3, K4 on 500 inducing tensors, and K2 raising its documented
+   NotImplementedError;
 3. serving: an SVGP at the benchmark width (SignatureRBF d=14 M=4, 500
    incremental inducing tensors, MultiClass C=10) behind a bucketed
    ``serving.Predictor`` with ``fused='on'`` answers ragged requests; K1's
@@ -53,7 +68,10 @@ and prints no result line):
    get a gradient, and K5 and K6 launch exactly twice a training step
    (Kzz and Kzx), K1-K4 never;
 4. times: the six kernels against their plain versions with CUDA events,
-   interleaved plain / kernel / kernel / plain; request latency per
+   interleaved plain / kernel / kernel / plain (K3 at N = 1, 8, 32 and 50,
+   K5 and K6 also at the N=50, L=315 full Kxx, K1-K6 at 9 levels once;
+   K3 at N = 1 and 8 also from a CUDA graph, the launch alone); request
+   latency per
    bucket and training steps/s (median of 20 synchronized steps after 5
    warm-up steps) with a ``torch.profiler`` breakdown of a step, for both
    models.
@@ -67,8 +85,10 @@ from __future__ import annotations
 
 import importlib
 import json
+import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -89,6 +109,13 @@ GRAD_BOUND, GRAD_FLOOR = 1e-3, 1e-3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 LEN_IND = LEVELS + 1  # inducing sequences of the recipe (train_gpsig.py:76-80)
 LONG = 205  # steps of the longest CharacterTrajectories series
+UWAVE, MAX_LEN, WALK = 315, 500, 1918  # benchmarks/datasets.json; the
+# reference runner's --max-len (benchmarks/run_gpsig_benchmarks.py:29)
+MANY, MANY_NZ, MANY_L = 70_000, 32, 6  # examples past the 65,535 grid limit
+EXTRA_LEVELS = 9  # past the main library's 8
+WIDE_LEVELS = 10  # K3 chains its range states four warps at a time
+PEMS_D, PEMS_L = 963, 144  # PEMS: 963 features, 144 observations
+# (benchmarks/datasets.json)
 KERNELS = {  # name: (module, source, TPU kernel it replaces)
     "kzz_fwd": ("inducing_cuda", "gpsig_tpu_torch/csrc/kzz_fwd.cu",
                 "gpsig_tpu/ops/inducing_pallas.py:223"),
@@ -121,6 +148,70 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+_PTXAS_ENTRY = re.compile(
+    r"Compiling entry function '_Z\w*?((?:kzz|kzx|seq)_(?:fwd|bwd)_"
+    r"(?:kernel|combine))I(\w*?)EEv")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_summary(report: str) -> list:
+    """Registers, stack frame and spills of each kernel instance in a
+    ptxas report; the template arguments (levels first) from its name."""
+    rows, cur, frame = [], None, None
+    for line in report.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            cur = (m.group(1), [int(a) for a in re.findall(r"L[ib](\d+)E",
+                                                           m.group(2) + "E")])
+            continue
+        m = _PTXAS_FRAME.search(line)
+        if m:
+            frame = [int(g) for g in m.groups()]
+        m = _PTXAS_REGS.search(line)
+        if m and cur is not None:
+            rows.append(dict(kernel=cur[0], args=cur[1],
+                             registers=int(m.group(1)), stack_frame=frame[0],
+                             spill_stores=frame[1], spill_loads=frame[2]))
+            cur = None
+    return rows
+
+
+def print_ptxas(rows, keep) -> None:
+    for r in rows:
+        if keep(r):
+            print(f"    {r['kernel']}<{','.join(map(str, r['args']))}>: "
+                  f"{r['registers']} registers, {r['stack_frame']} bytes "
+                  f"stack frame, {r['spill_stores']} / {r['spill_loads']} "
+                  "bytes spill stores / loads")
+
+
+def build_libraries(build_mod):
+    """Phase 1: the main library and the 9- and 10-level ones, built at
+    once (each runs one nvcc per source); returns {levels: (library,
+    seconds)}, the main library under 1."""
+    out, errors = {}, []
+
+    def build(m):
+        t0 = time.perf_counter()
+        try:
+            out[m] = (build_mod.load(m), time.perf_counter() - t0)
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    workers = [threading.Thread(target=build, args=(m,))
+               for m in (EXTRA_LEVELS, WIDE_LEVELS)]
+    for w in workers:
+        w.start()
+    build(1)
+    for w in workers:
+        w.join()
+    if errors:
+        raise errors[0]
+    return out
 
 
 def _wrapper(name: str):
@@ -265,26 +356,37 @@ def kernel_checks(ic, ut, X):
 
 
 def check_against_plain(name, out, p32, p64, meta) -> dict:
-    """A kernel's output against its plain version at f32 and f64."""
-    if isinstance(out, torch.Tensor):
-        out, p32, p64 = (out,), (p32,), (p64,)
+    """A kernel's output against its plain version at f32 and f64, each
+    part held to the bound at its own scale, floored at 1 as in PERF.md
+    section 2: each level of a forward level stack (the top level of a long
+    sequence is orders of magnitude above the first), each gradient of a
+    backward."""
+    if isinstance(out, torch.Tensor):  # a level stack: one part a level
+        out, p32, p64 = out.unbind(0), p32.unbind(0), p64.unbind(0)
     bound = F32_BOUND if name.endswith("fwd") else BWD_BOUND
     bound64 = F64_BOUND if name.endswith("fwd") else BWD_BOUND
-    scale = max(float(p.abs().max()) for p in p64)
-    e32 = max(float((o - p).abs().max()) for o, p in zip(out, p32))
-    e64 = max(float((o.double() - p).abs().max()) for o, p in zip(out, p64))
-    row = dict(kernel=name, **meta, scale=scale, err_vs_plain_f32=e32,
-               err_vs_plain_f64=e64, plain_f32_err_vs_f64=max(
+    tops = [float(p.abs().max()) for p in p64]
+    scales = [max(t, 1.0) for t in tops]
+    e32 = [float((o - p).abs().max()) for o, p in zip(out, p32)]
+    e64 = [float((o.double() - p).abs().max()) for o, p in zip(out, p64)]
+    # the largest error of a part against its bound at its scale
+    r32 = max(e / (bound * c) for e, c in zip(e32, scales))
+    r64 = max(e / (bound64 * c) for e, c in zip(e64, scales))
+    row = dict(kernel=name, **meta, scale=max(tops), part_scales=tops,
+               err_vs_plain_f32=max(e32), err_vs_plain_f64=max(e64),
+               f32_err_over_bound=r32, f64_err_over_bound=r64,
+               part_err_f32=e32, part_err_f64=e64,
+               part_plain_f32_err_vs_f64=[
                    float((a.double() - b).abs().max())
-                   for a, b in zip(p32, p64)))
-    print(f"  {name} {meta}: |k-p32|={e32:.3e} |k-p64|={e64:.3e} "
-          f"scale={scale:.3e}")
+                   for a, b in zip(p32, p64)])
+    row["plain_f32_err_vs_f64"] = max(row["part_plain_f32_err_vs_f64"])
+    print(f"  {name} {meta}: |k-p32|={max(e32):.3e} |k-p64|={max(e64):.3e} "
+          f"scale={max(tops):.3e}; worst part at {r32:.3f} / {r64:.3f} "
+          "of its f32 / f64 bound")
     check(all(bool(torch.isfinite(o).all()) for o in out),
           f"{name}: non-finite")
-    check(e32 <= bound * max(scale, 1.0), f"{name} {row}: exceeds the f32 "
-          "bound")
-    check(e64 <= bound64 * max(scale, 1.0), f"{name} {row}: exceeds the f64 "
-          "bound")
+    check(r32 <= 1.0, f"{name} {row}: exceeds the f32 bound")
+    check(r64 <= 1.0, f"{name} {row}: exceeds the f64 bound")
     return row
 
 
@@ -292,10 +394,16 @@ SEQ_CASES = (  # (N1, L1, N2, L2, symmetric, base, difference)
     (N_IND, LEN_IND, N_IND, LEN_IND, True, "rbf", True),  # Kzz
     (N_IND, LEN_IND, BATCH, L, False, "rbf", True),  # Kzx
     (BATCH, L, BATCH, L, True, "rbf", True),  # full Kxx
-    # data longer than K5/K6's 128 inner steps (CharacterTrajectories'
-    # longest, benchmarks/datasets.json), in both argument orders
+    # data longer than 128 steps (CharacterTrajectories' longest,
+    # benchmarks/datasets.json), in both argument orders
     (N_IND, LEN_IND, BATCH, LONG, False, "rbf", True),
     (BATCH, LONG, N_IND, LEN_IND, False, "rbf", True),
+    # both sides past one inner chunk: a full Kxx at UWave's length, pairs
+    # at the reference runner's max_len, and WalkvsRun's longest series
+    (BATCH, UWAVE, BATCH, UWAVE, True, "rbf", True),
+    (20, MAX_LEN, 20, MAX_LEN, True, "rbf", True),
+    (7, 300, 5, WALK, False, "rbf", True),
+    (5, WALK, 7, 300, False, "rbf", True),
     (7, 11, 5, 18, False, "rbf", True),
     (7, 11, 5, 18, False, "rbf", False),
     (7, 11, 5, 18, False, "linear", True),
@@ -312,7 +420,13 @@ def seq_inputs(ic, Zs, X, ls, case, dtype):
     def data(n, l, last):
         if l <= L:
             return X[-n:, :l] if last else X[:n, :l]
-        return np.random.RandomState(SEED + 7).randn(n, l, D)
+        # longer than the synthetic data: points of size 1/sqrt(l), as the
+        # card tests draw them.  Unit white noise of these lengths leaves
+        # the odd levels, sums of many terms of both signs, ill conditioned
+        # in f32: the f32 plain version itself is then further off f64 than
+        # the bounds at a level's own scale
+        rng = np.random.RandomState(SEED + 7 + int(last))
+        return rng.randn(n, l, D) / np.sqrt(l)
 
     A = Zs[:n1, :l1] if l1 == LEN_IND else data(n1, l1, True)
     A = torch.as_tensor(A, dtype=dtype, device="cuda") / scale
@@ -350,6 +464,246 @@ def seq_kernel_checks(sc, ic, Zs, X, ls):
                     difference=diff)
         for pair in pairs:
             rows.append(check_against_plain(*pair, meta))
+    return rows
+
+
+def _sliced(fn, args, ct, n_ex, step=10_000):
+    """A Kzx kernel's plain version on slices of the examples: the forward
+    concatenated, the backward's inducing gradients summed and its
+    sequence gradients concatenated."""
+    parts = []
+    for a in range(0, n_ex, step):
+        sl = (*args[:2], args[2][a:a + step], args[3][a:a + step])
+        parts.append(fn(*sl) if ct is None else fn(*sl, ct[:, :, a:a + step]))
+    if ct is None:
+        return torch.cat(parts, dim=2)
+    return (sum(p[0] for p in parts), sum(p[1] for p in parts),
+            torch.cat([p[2] for p in parts]), torch.cat([p[3] for p in parts]))
+
+
+def many_examples_checks(ic, ut, X):
+    """Phase 2c: K3 and K4 at 70,000 examples in one call (past the 65,535
+    of a grid's y), 32 benchmark inducing tensors, L=6, against their plain
+    versions on slices of 10,000 examples."""
+    Z_np, ls = benchmark_inputs(ut, X)
+    Xm = np.random.RandomState(SEED + 9).randn(MANY, MANY_L, D)
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        _, zx = kernel_inputs(ic, Xm, Z_np, ls, MANY_NZ, MANY, MANY_L,
+                              base="rbf", inc=True, dtype=dtype)
+        ct = torch.as_tensor(np.random.RandomState(SEED + 10).randn(
+            LEVELS + 1, MANY_NZ, MANY), dtype=dtype, device="cuda")
+        rows[dtype] = (zx, ct)
+    (zx, ct), (zx64, ct64) = rows[torch.float32], rows[torch.float64]
+    kw = dict(num_levels=LEVELS, base="rbf", increments=True,
+              difference=True)
+    out, grads = ic.kzx_fwd(*zx, **kw), ic.kzx_bwd(*zx, ct, **kw)
+    torch.cuda.synchronize()
+    meta = dict(nz=MANY_NZ, N=MANY, L=MANY_L)
+
+    def fwd(*a):
+        return ic.kzx_fwd_plain(*a, **kw)
+
+    def bwd(*a):
+        return ic.kzx_bwd_plain(*a, **kw)
+
+    return [check_against_plain("kzx_fwd", out, _sliced(fwd, zx, None, MANY),
+                                _sliced(fwd, zx64, None, MANY), meta),
+            check_against_plain("kzx_bwd", grads, _sliced(bwd, zx, ct, MANY),
+                                _sliced(bwd, zx64, ct64, MANY), meta)]
+
+
+def extra_levels_setup(ic, sc, m=EXTRA_LEVELS):
+    """Inputs at m levels and a small width, and for each of K1-K6 a
+    ``call(fn, dtype)`` of its kernel or plain version on them."""
+    lt, nz, n = m * (m + 1) // 2, 37, 3
+    rng = np.random.RandomState(SEED + 11)
+    Z = rng.randn(lt, nz, 2, D) * 0.3
+    Xs = rng.randn(n, 18, D) / 4
+    A, B = rng.randn(7, 11, D) / 4, rng.randn(5, 40, D) / 4
+    ctz, ctx, cts = (rng.randn(m + 1, nz, nz), rng.randn(m + 1, nz, n),
+                     rng.randn(m + 1, 7, 5))
+    ins = {}
+    for dtype in (torch.float32, torch.float64):
+        Zt, Xt, At, Bt, cz, cx, cs = (
+            torch.as_tensor(a, dtype=dtype, device="cuda")
+            for a in (Z, Xs, A, B, ctz, ctx, cts))
+        zz = (*ic._prep_tensors(Zt, "rbf", True, lhs=True),
+              *ic._prep_tensors(Zt, "rbf", True, lhs=False))
+        zx = (*zz[:2], *ic._prep_seq(Xt, "rbf"))
+        ss = (*ic._prep_seq(At, "rbf", lhs=True), *ic._prep_seq(Bt, "rbf"))
+        ins[dtype] = (zz, zx, ss, cz, cx, cs)
+    kw = dict(num_levels=m, base="rbf", increments=True)
+    kwx = dict(kw, difference=True)
+    kws = dict(num_levels=m, base="rbf", difference=True)
+    # (kernel, its rows in ins, its cotangent in ins, options)
+    specs = (("kzz_fwd", 0, None, kw), ("kzx_fwd", 1, None, kwx),
+             ("kzz_bwd", 0, 3, kw), ("kzx_bwd", 1, 4, kwx),
+             ("seq_fwd", 2, None, kws), ("seq_bwd", 2, 5, kws))
+    calls = {}
+    for name, at, ct_at, opts in specs:
+        def call(fn, dtype, at=at, ct_at=ct_at, opts=opts):
+            got = ins[dtype]
+            cts = () if ct_at is None else (got[ct_at],)
+            return fn(*got[at], *cts, **opts)
+        calls[name] = call
+    return calls
+
+
+def _plain(name: str):
+    return getattr(importlib.import_module(_wrapper(name).__module__),
+                   name + "_plain")
+
+
+def extra_levels_checks(ic, sc):
+    """Phase 2d: K1-K6 at 9 and 10 levels (the libraries built for those
+    level counts) at a small width, against their plain versions."""
+    rows = []
+    for m in (EXTRA_LEVELS, WIDE_LEVELS):
+        for name, call in extra_levels_setup(ic, sc, m).items():
+            out = call(_wrapper(name), torch.float32)
+            torch.cuda.synchronize()
+            rows.append(check_against_plain(
+                name, out, call(_plain(name), torch.float32),
+                call(_plain(name), torch.float64), dict(levels=m)))
+    return rows
+
+
+def expm1_checks(sc) -> dict:
+    """Phase 2e: common.cuh's expm1_acc (K3's and K5's expm1) and CUDA's
+    expm1f against float64 expm1 on a dense grid of [-1, 1], at the switch
+    at +-0.41 and near 0, in float32 ulp of the true value; and the rbf slot
+    Gram exp(a) (expm1(d01 + d10 + dxx) - expm1(d01) - expm1(d10)), whose
+    terms cancel, with each, in float32 epsilons of the sum of its terms'
+    magnitudes.  Bounds: 5 ulp, 16 epsilons."""
+    x = np.concatenate([np.linspace(-1, 1, 1 << 22),
+                        0.41 + np.linspace(-1e-3, 1e-3, 1 << 16),
+                        -0.41 + np.linspace(-1e-3, 1e-3, 1 << 16),
+                        np.geomspace(1e-9, 0.1, 1 << 16),
+                        -np.geomspace(1e-9, 0.1, 1 << 16)]).astype(np.float32)
+    rng = np.random.RandomState(SEED + 12)
+    k = 1 << 22
+    combo = np.stack([rng.uniform(-1, 0.5, k), rng.uniform(-0.6, 0.6, k),
+                      rng.uniform(-0.6, 0.6, k),
+                      rng.uniform(-0.05, 0.05, k)], 1).astype(np.float32)
+    args = np.concatenate([np.stack([x, *np.zeros((3, len(x)))], 1),
+                           combo]).astype(np.float32)
+    out = sc.expm1_probe(torch.as_tensor(args, device="cuda")).cpu().numpy()
+    want = np.expm1(x.astype(np.float64))
+    ulp = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
+    a, d01, d10, dxx = combo.astype(np.float64).T
+    terms = [np.expm1(d01 + d10 + dxx), np.expm1(d01), np.expm1(d10)]
+    g = np.exp(a) * (terms[0] - terms[1] - terms[2])
+    unit = np.exp(a) * sum(np.abs(t) for t in terms) * 2.0 ** -23
+    res = dict(points=len(x), combos=k,
+               expm1_acc_max_ulp=float(np.max(np.abs(out[:len(x), 0] - want)
+                                              / ulp)),
+               expm1f_max_ulp=float(np.max(np.abs(out[:len(x), 1] - want)
+                                           / ulp)),
+               slot_gram_acc_max_eps=float(np.max(np.abs(out[len(x):, 2] - g)
+                                                  / unit)),
+               slot_gram_expm1f_max_eps=float(np.max(
+                   np.abs(out[len(x):, 3] - g) / unit)))
+    print(f"  expm1 on {len(x)} points: expm1_acc {res['expm1_acc_max_ulp']:.2f}"
+          f" ulp, expm1f {res['expm1f_max_ulp']:.2f} ulp at most; slot Gram "
+          f"on {k} cancelling rows: {res['slot_gram_acc_max_eps']:.2f} eps "
+          f"with expm1_acc, {res['slot_gram_expm1f_max_eps']:.2f} with "
+          "expm1f, at most")
+    check(res["expm1_acc_max_ulp"] <= 5, f"expm1_acc past 5 ulp: {res}")
+    check(res["slot_gram_acc_max_eps"] <= 16, f"slot Gram past 16 eps: {res}")
+    return res
+
+
+def _walks(rng, n, l, d, v):
+    """Paths from 0 to a shared direction v (|v| ~ 1) plus a random walk
+    of half its size: at any width |x_t|^2 stays O(1), and the increments
+    of any two paths correlate, so that the levels are O(1)."""
+    t = np.linspace(0.0, 1.0, l)[:, None]
+    walk = np.cumsum(rng.randn(n, l, d), 1) / np.sqrt(l * d)
+    return torch.as_tensor(t * v + 0.5 * walk, device="cuda")
+
+
+def wide_checks(ic, sc):
+    """Phase 2f: PEMS's 963 features.  K5 and K6 on the Kzz of 500
+    inducing sequences of length 5 and their Kzx against 50 examples of
+    144 steps (inner rows past shared memory, read through L1); K1, K3, K4
+    on 500 inducing tensors against 16 of the examples; each against its
+    plain version.  K2 keeps a level's rows in shared memory and must raise
+    a clear NotImplementedError at this width."""
+    rng = np.random.RandomState(SEED + 13)
+    v = rng.randn(PEMS_D) / np.sqrt(PEMS_D)
+    Z = _walks(rng, N_IND, LEN_IND, PEMS_D, v)
+    X = _walks(rng, BATCH, PEMS_L + 1, PEMS_D, v)
+    Zt = torch.as_tensor(rng.randn(LT, N_IND, 2, PEMS_D) / np.sqrt(PEMS_D),
+                         device="cuda")
+    rows, meta = [], dict(d=PEMS_D)
+    kws = dict(num_levels=LEVELS, base="rbf", difference=True)
+    for A, B, sym in ((Z, Z, True), (Z, X, False)):
+        r64 = (*ic._prep_seq(A, "rbf", lhs=True), *ic._prep_seq(B, "rbf"))
+        r32 = [t.float() for t in r64]
+        ct64 = torch.as_tensor(rng.randn(LEVELS + 1, len(A), len(B)),
+                               device="cuda")
+        ct32 = ct64.float()
+        kw = dict(kws, symmetric=sym)
+        out = sc.seq_fwd(*r32, **kw)
+        grads = sc.seq_bwd(*r32, ct32, **kw)
+        torch.cuda.synchronize()
+        if sym:
+            check(torch.equal(out, out.transpose(1, 2)),
+                  "seq_fwd at PEMS width: not exactly symmetric")
+        m = dict(meta, N1=len(A), L1=A.shape[1], N2=len(B), L2=B.shape[1])
+        rows.append(check_against_plain(
+            "seq_fwd", out, sc.seq_fwd_plain(*r32, **kw),
+            sc.seq_fwd_plain(*r64, **kw), m))
+        rows.append(check_against_plain(
+            "seq_bwd", grads, sc.seq_bwd_plain(*r32, ct32, **kw),
+            sc.seq_bwd_plain(*r64, ct64, **kw), m))
+    zz64 = (*ic._prep_tensors(Zt, "rbf", True, lhs=True),
+            *ic._prep_tensors(Zt, "rbf", True, lhs=False))
+    zx64 = (*zz64[:2], *ic._prep_seq(X[:16], "rbf"))
+    zz32, zx32 = [t.float() for t in zz64], [t.float() for t in zx64]
+    cx64 = torch.as_tensor(rng.randn(LEVELS + 1, N_IND, 16), device="cuda")
+    kw = dict(num_levels=LEVELS, base="rbf", increments=True)
+    kwx = dict(kw, difference=True)
+    m = dict(meta, nz=N_IND, N=16, L=PEMS_L + 1)
+    rows.append(check_against_plain(
+        "kzz_fwd", ic.kzz_fwd(*zz32, **kw), ic.kzz_fwd_plain(*zz32, **kw),
+        ic.kzz_fwd_plain(*zz64, **kw), m))
+    rows.append(check_against_plain(
+        "kzx_fwd", ic.kzx_fwd(*zx32, **kwx), ic.kzx_fwd_plain(*zx32, **kwx),
+        ic.kzx_fwd_plain(*zx64, **kwx), m))
+    rows.append(check_against_plain(
+        "kzx_bwd", ic.kzx_bwd(*zx32, cx64.float(), **kwx),
+        ic.kzx_bwd_plain(*zx32, cx64.float(), **kwx),
+        ic.kzx_bwd_plain(*zx64, cx64, **kwx), m))
+    cz = torch.zeros((LEVELS + 1, N_IND, N_IND), device="cuda")
+    try:
+        ic.kzz_bwd(*zz32, cz, **kw)
+        raised = False
+    except NotImplementedError as e:
+        raised = True
+        print(f"  kzz_bwd at d={PEMS_D}: raises, as documented: {e}")
+    check(raised, f"kzz_bwd at d={PEMS_D} did not raise")
+    return rows
+
+
+def time_extra_levels(ic, sc):
+    """Phase 4d: K1-K6 at 9 levels, once, at the phase-2d shapes, against
+    their plain versions, interleaved."""
+    rows = []
+    for name, call in extra_levels_setup(ic, sc).items():
+        def kern():
+            return call(_wrapper(name), torch.float32)
+
+        def plain():
+            return call(_plain(name), torch.float32)
+
+        p1, k1, k2, p2 = (time_cuda(plain, reps=5), time_cuda(kern),
+                          time_cuda(kern), time_cuda(plain, reps=5))
+        rows.append(dict(kernel=name, levels=EXTRA_LEVELS, ms=[k1, k2],
+                         plain_ms=[p1, p2]))
+        print(f"  {name} ({EXTRA_LEVELS} levels): kernel {k1:.4f} / "
+              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
     return rows
 
 
@@ -555,10 +909,10 @@ def seq_bound_ms(name: str, case) -> tuple[float, str]:
 
 def time_seq_kernels(sc, ic, Zs, X, ls):
     """Phase 4a': K5 and K6 vs their plain versions at the three
-    full-width shapes (Kzz, Kzx, full Kxx) and at Kzx with 205-step data,
-    interleaved."""
+    full-width shapes (Kzz, Kzx, full Kxx), at Kzx with 205-step data and
+    at the full Kxx of 315-step data, interleaved."""
     rows = []
-    for case in SEQ_CASES[:4]:
+    for case in SEQ_CASES[:4] + SEQ_CASES[5:6]:
         n1, l1, n2, l2, sym, base, diff = case
         r, ct = seq_inputs(ic, Zs, X, ls, case, torch.float32)
         kw = dict(num_levels=LEVELS, base=base, difference=diff,
@@ -612,12 +966,26 @@ def full_cov_check(T, model, X):
                 min_eigenvalue=min_eig)
 
 
+def time_graph(fn, reps=20) -> float:
+    """A call's device time alone: ``reps`` calls captured in a CUDA graph,
+    replayed; the host work of the wrapper between launches drops out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_cuda(graph.replay, reps=5, warm=2) / reps
+
+
 def time_kernels(ic, ut, X):
-    """Phase 4a: kernel vs plain at the benchmark shapes, interleaved."""
+    """Phase 4a: kernel vs plain at the benchmark shapes, interleaved; K3
+    at the serving batches also from a CUDA graph (the launch alone)."""
     Z_np, ls = benchmark_inputs(ut, X)
     rows = []
-    for name, n in (("kzz_fwd", BATCH), ("kzx_fwd", 32), ("kzx_fwd", BATCH),
-                    ("kzz_bwd", BATCH), ("kzx_bwd", BATCH)):
+    for name, n in (("kzz_fwd", BATCH), ("kzx_fwd", 1), ("kzx_fwd", 8),
+                    ("kzx_fwd", 32), ("kzx_fwd", BATCH), ("kzz_bwd", BATCH),
+                    ("kzx_bwd", BATCH)):
         zz, zx = kernel_inputs(ic, X, Z_np, ls, N_IND, n, L, base="rbf",
                                inc=True, dtype=torch.float32)
         cz, cx = cotangents(N_IND, n, torch.float32)
@@ -638,8 +1006,12 @@ def time_kernels(ic, ut, X):
         b_ms, b_by = bound_ms(name, N_IND, n, L)
         rows.append(dict(kernel=name, N=n, ms=[k1, k2], plain_ms=[p1, p2],
                          bound_ms=b_ms, bound_by=b_by))
+        graph = ""
+        if name == "kzx_fwd" and n < 32:
+            rows[-1]["graph_ms"] = time_graph(kern)
+            graph = f", launch alone {rows[-1]['graph_ms']:.4f} ms"
         print(f"  {name} (nZ={N_IND}, N={n}, L={L}): kernel {k1:.4f} / "
-              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, bound "
+              f"{k2:.4f} ms{graph}, plain {p1:.4f} / {p2:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by})")
     return rows
 
@@ -781,11 +1153,23 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     print(card)
-    t0 = time.perf_counter()
-    lib = _cuda_build.load()
-    build_s = time.perf_counter() - t0
-    print(f"phase 1: built {lib.path.name} in {build_s:.1f} s; ptxas:")
-    print(lib.ptxas_report.strip())
+    libs = build_libraries(_cuda_build)
+    (lib, build_s), (lib9, build9_s) = libs[1], libs[EXTRA_LEVELS]
+    lib10, build10_s = libs[WIDE_LEVELS]
+    ptxas = ptxas_summary(lib.ptxas_report)
+    ptxas9 = ptxas_summary(lib9.ptxas_report)
+    ptxas10 = ptxas_summary(lib10.ptxas_report)
+    print(f"phase 1: built {lib.path.parent.name} (1-8 levels) in "
+          f"{build_s:.1f} s, {lib9.path.parent.name} ({EXTRA_LEVELS} "
+          f"levels) in {build9_s:.1f} s and {lib10.path.parent.name} "
+          f"({WIDE_LEVELS}) in {build10_s:.1f} s, at once; ptxas, K3 and K5 "
+          f"at {LEVELS} levels:")
+    print_ptxas(ptxas, lambda r: r["args"][:1] == [LEVELS] and (
+        r["kernel"].startswith("kzx_fwd") or r["kernel"] == "seq_fwd_kernel"))
+    print(f"  every kernel at {EXTRA_LEVELS} levels:")
+    print_ptxas(ptxas9, lambda r: True)
+    print(f"  K3 at {WIDE_LEVELS} levels:")
+    print_ptxas(ptxas10, lambda r: r["kernel"].startswith("kzx_fwd"))
 
     print("set-up: benchmark-width models from the seed")
     X, y = synthetic_data()
@@ -794,7 +1178,10 @@ def main() -> None:
     Zs = T.convert.to_numpy_tree(sref)["ind"]["Z"]
     ls = ut.suggest_initial_lengthscales(X, 1000, seed=SEED)
     print("phase 2: kernels against their plain versions")
-    checks = kernel_checks(ic, ut, X) + seq_kernel_checks(sc, ic, Zs, X, ls)
+    checks = (kernel_checks(ic, ut, X) + seq_kernel_checks(sc, ic, Zs, X, ls)
+              + many_examples_checks(ic, ut, X) + extra_levels_checks(ic, sc))
+    expm1 = expm1_checks(sc)
+    checks += wide_checks(ic, sc)
     print("phase 3: serving, inducing tensors")
     pred, serve_launches, requests = drive_serving(
         T, model, ref, X, ("kzz_fwd", "kzx_fwd"))
@@ -812,7 +1199,8 @@ def main() -> None:
     s_train_launches, s_train = drive_training(
         T, smodel, X, y, {"seq_fwd": 2, "seq_bwd": 2})
     print(f"phase 4: times ({card})")
-    ktimes = time_kernels(ic, ut, X) + time_seq_kernels(sc, ic, Zs, X, ls)
+    ktimes = (time_kernels(ic, ut, X) + time_seq_kernels(sc, ic, Zs, X, ls)
+              + time_extra_levels(ic, sc))
     latency = time_requests(pred, X)
     train_time = time_training(T, model, X, y)
     print("  inducing sequences:")
@@ -840,7 +1228,12 @@ def main() -> None:
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None))
     details = dict(card=card, torch=torch.__version__,
                    cuda=torch.version.cuda, build_s=build_s,
-                   ptxas=lib.ptxas_report, kernel_checks=checks,
+                   build_extra_levels_s=build9_s,
+                   build_wide_levels_s=build10_s, ptxas=lib.ptxas_report,
+                   ptxas_extra_levels=lib9.ptxas_report,
+                   ptxas_summary=ptxas, ptxas_summary_extra_levels=ptxas9,
+                   ptxas_summary_wide_levels=ptxas10, kernel_checks=checks,
+                   expm1=expm1,
                    serving_launches=serve_launches, requests=requests,
                    full_cov=full_cov, gradient_check=grads,
                    training_launches=train_launches, training=train,

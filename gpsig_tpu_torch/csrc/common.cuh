@@ -2,28 +2,59 @@
 // slot-Gram algebra of gpsig_tpu/ops/inducing_pallas.py (_slot_gram_zz :153,
 // _slot_gram_zz_bwd :175, _slot_gram_zx :554, _slot_gram_zx_bwd :604) on
 // norm-augmented value/difference vectors, for kzz_fwd.cu, kzz_bwd.cu,
-// kzx_fwd.cu and kzx_bwd.cu; and the group scans and row dots of the
-// seq x seq kernels seq_fwd.cu and seq_bwd.cu.
+// kzx_fwd.cu and kzx_bwd.cu; the group scans of the seq x seq backward
+// seq_bwd.cu; and the level switch every launcher ends in.
 //
-// Transcendentals: CUDA's accurate expf (max 2 ulp) and expm1f (max 1 ulp),
-// never the __expf intrinsic -- the library is built without
-// --use_fast_math.  This is a deliberate divergence from the TPU kernels,
-// which carry their own exp (gram.exp_accurate) and a Taylor branch for
-// expm1 (signature_pallas._expm1) because Mosaic's native f32 exp is only
-// ~4e-6 accurate.  expm1f is relatively accurate near 0, which is all the
-// Taylor branch existed for.
+// Transcendentals: CUDA's accurate expf (max 2 ulp) and expm1f (max 1
+// ulp), never the __expf intrinsic -- the library is built without
+// --use_fast_math; K3 and K5 call the shorter expm1_acc below (max 4.5
+// ulp; chip_smoke.py phase 2e measures it) in place of expm1f.  This is a
+// deliberate divergence from the TPU kernels, which carry their own exp
+// (gram.exp_accurate) and a Taylor branch for expm1
+// (signature_pallas._expm1) because Mosaic's native f32 exp is only ~4e-6
+// accurate.  expm1f and expm1_acc are relatively accurate near 0, which is
+// all the Taylor branch existed for.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace gpsig {
 
+// expm1(x) to a few ulp in ~20 instructions, shorter than CUDA's expm1f
+// (1 ulp, with its own range reduction and branches), which K3 and K5 call
+// two and three times an entry: the Taylor series to x^8 on |x| < 0.41
+// (remainder < 2e-9 relative), expf(x) - 1 elsewhere (|expm1(x)| > 0.33
+// there and the subtraction exact, so expf's 2 ulp become <= 4.5: an ulp of
+// expm1 is at least half one of exp); both computed and one selected, so
+// no branch.
+__device__ __forceinline__ float expm1_acc(float x) {
+  float p = 1.f / 40320.f;
+  p = fmaf(p, x, 1.f / 5040.f);
+  p = fmaf(p, x, 1.f / 720.f);
+  p = fmaf(p, x, 1.f / 120.f);
+  p = fmaf(p, x, 1.f / 24.f);
+  p = fmaf(p, x, 1.f / 6.f);
+  p = fmaf(p, x, 0.5f);
+  p = fmaf(p, x * x, x);
+  const float e = expf(x) - 1.f;
+  return fabsf(x) < 0.41f ? p : e;
+}
+
+// expm1 of the slot Grams: CUDA's expm1f, or (SHORT: K3, K5) expm1_acc.
+template <bool SHORT>
+__device__ __forceinline__ float slot_expm1(float x) {
+  return SHORT ? expm1_acc(x) : expm1f(x);
+}
+
 // Base kernels the hand kernels cover; the values match
 // gpsig_tpu_torch/ops/inducing_cuda.py::_BASE_IDS.
 enum Base : int { kRbf = 0, kLinear = 1 };
 
-// Signature levels a kernel is instantiated for (level loops and the
-// per-thread recursion state are unrolled at compile time).
+// Signature levels the main library is instantiated for (level loops and
+// the per-thread recursion state are unrolled at compile time).  A call
+// with more levels loads a second library built from the same sources
+// with -DGPSIG_EXTRA_LEVELS=M, which holds the instances for that M only
+// (ops/_cuda_build.py; GPSIG_SWITCH_LEVELS below).
 constexpr int kMaxLevels = 8;
 
 // Kzz slot Gram of lhs tensor (v, dv) against rhs tensor (w, dw) from the
@@ -35,18 +66,21 @@ constexpr int kMaxLevels = 8;
 // :257-283) with increments = difference: the steps are 2-point paths, and
 // without difference the entry is the plain Gram exp(A00) / A00.  It is
 // symmetric in d01 and d10, so either sequence may be the row side.
+template <bool SHORT = false>
 __device__ __forceinline__ float slot_gram_zz(float a00, float d01, float d10,
                                               float dxx, int base,
                                               bool increments) {
   if (base == kLinear) return increments ? dxx : a00;
   if (!increments) return expf(a00);
-  return expf(a00) * (expm1f(d01 + d10 + dxx) - expm1f(d01) - expm1f(d10));
+  return expf(a00) * (slot_expm1<SHORT>(d01 + d10 + dxx) -
+                      slot_expm1<SHORT>(d01) - slot_expm1<SHORT>(d10));
 }
 
 // Kzx slot Gram of inducing tensor (v, dv) against observation x_t with
 // time step dx_t, from a0 = <v,x>, dza = <dv,x>, da0 = <v,dx>, dda = <dv,dx>.
 // rbf with increments and difference is the (z-increment x time-increment)
 // entry exp(A0) (exp(dZA) expm1(dA0 + ddA) - expm1(dA0)).
+template <bool SHORT = false>
 __device__ __forceinline__ float slot_gram_zx(float a0, float dza, float da0,
                                               float dda, int base,
                                               bool increments,
@@ -56,10 +90,12 @@ __device__ __forceinline__ float slot_gram_zx(float a0, float dza, float da0,
     return difference ? da0 : a0;
   }
   if (increments) {
-    if (difference) return expf(a0) * (expf(dza) * expm1f(da0 + dda) - expm1f(da0));
-    return expf(a0) * expm1f(dza);
+    if (difference)
+      return expf(a0) * (expf(dza) * slot_expm1<SHORT>(da0 + dda) -
+                         slot_expm1<SHORT>(da0));
+    return expf(a0) * slot_expm1<SHORT>(dza);
   }
-  if (difference) return expf(a0) * expm1f(da0);
+  if (difference) return expf(a0) * slot_expm1<SHORT>(da0);
   return expf(a0);
 }
 
@@ -145,22 +181,24 @@ __device__ __forceinline__ float slot_gram_zx_partials(float a0, float dza,
 // seq x seq (seq_fwd.cu, seq_bwd.cu)
 // ---------------------------------------------------------------------------
 
-// A pair of sequences is handled by a group of G lanes of one warp (G a power
-// of two <= 32); lane lg of the group owns the inner time steps lg + j G,
-// j < cpl <= kSeqCols.  The group scans below run over the steps in that
-// order; every lane of the warp must call them (all groups of a warp share
-// G and cpl).
-constexpr int kSeqCols = 4;      // inner steps per lane: inner length <= 128
+// K6's pairs (seq_bwd.cu) are handled by a group of G lanes of one warp (G
+// a power of two <= 32); lane lg of the group owns the inner time steps
+// c0 + lg + j G, j < cpl <= kSeqCols, of the chunk of G cpl inner steps
+// that starts at c0.  The group scans below run over the chunk's steps in
+// that order; every lane of the warp must call them (all groups of a warp
+// share G and cpl).
+constexpr int kSeqCols = 4;      // inner steps per lane: a chunk <= 128
 constexpr int kSeqThreads = 128;  // threads per block of K5 / K6
 constexpr int kSeqWarps = kSeqThreads / 32;
 
 // y[j] = sum of x over the group's steps before step lg + j G (exclusive
-// prefix along the inner time axis).  N, the lane's register slots, is
-// kSeqCols or fewer (cpl <= N).
+// prefix along the chunk's inner steps).  N, the lane's register slots, is
+// kSeqCols or fewer (cpl <= N).  Returns the sum over all the chunk's
+// steps (the row carry of the next chunk needs it).
 template <int N>
-__device__ __forceinline__ void group_excl_scan(const float (&x)[N],
-                                                float (&y)[N], int cpl,
-                                                int lg, int G) {
+__device__ __forceinline__ float group_excl_scan(const float (&x)[N],
+                                                 float (&y)[N], int cpl,
+                                                 int lg, int G) {
   float carry = 0.f;
 #pragma unroll
   for (int j = 0; j < N; ++j) {
@@ -177,14 +215,16 @@ __device__ __forceinline__ void group_excl_scan(const float (&x)[N],
       y[j] = 0.f;
     }
   }
+  return carry;
 }
 
 // y[j] = sum of x over the group's steps after step lg + j G (the adjoint:
-// exclusive suffix along the inner time axis).
+// exclusive suffix along the chunk's inner steps).  Returns the sum over
+// all the chunk's steps.
 template <int N>
-__device__ __forceinline__ void group_rev_excl_scan(const float (&x)[N],
-                                                    float (&y)[N], int cpl,
-                                                    int lg, int G) {
+__device__ __forceinline__ float group_rev_excl_scan(const float (&x)[N],
+                                                     float (&y)[N], int cpl,
+                                                     int lg, int G) {
   float carry = 0.f;
 #pragma unroll
   for (int j = N - 1; j >= 0; --j) {
@@ -201,6 +241,7 @@ __device__ __forceinline__ void group_rev_excl_scan(const float (&x)[N],
       y[j] = 0.f;
     }
   }
+  return carry;
 }
 
 // Sum of v over the group's G lanes, in every lane.
@@ -239,63 +280,20 @@ __device__ __forceinline__ float warp_reduce_scatter32(float (&v)[32]) {
   return v[0];
 }
 
-// The four dots of outer row s (value ov_s, step od_s: d2 floats each)
-// against the lane's inner steps of one inner sequence, stored transposed
-// (ivT, idT: [d2][Li]).  Steps past the sweep read a live column and are
-// masked by the caller.  Without difference only a00 is formed.
-__device__ __forceinline__ void seq_row_dots(
-    const float* __restrict__ ov_s, const float* __restrict__ od_s,
-    const float* __restrict__ ivT, const float* __restrict__ idT, int Li,
-    int d2, int lg, int G, int cpl, bool difference, float (&a00)[kSeqCols],
-    float (&d01)[kSeqCols], float (&d10)[kSeqCols], float (&dxx)[kSeqCols]) {
-  int col[kSeqCols];
-#pragma unroll
-  for (int j = 0; j < kSeqCols; ++j) {
-    a00[j] = d01[j] = d10[j] = dxx[j] = 0.f;
-    col[j] = min(lg + j * G, Li - 1);
-  }
-  for (int c = 0; c < d2; ++c) {
-    const float a = __ldg(ov_s + c);
-    const float b = difference ? __ldg(od_s + c) : 0.f;
-    const float* xr = ivT + static_cast<size_t>(c) * Li;
-    const float* yr = idT + static_cast<size_t>(c) * Li;
-#pragma unroll
-    for (int j = 0; j < kSeqCols; ++j) {
-      if (j < cpl) {
-        const float x = __ldg(xr + col[j]);
-        a00[j] = fmaf(a, x, a00[j]);
-        if (difference) {
-          const float y = __ldg(yr + col[j]);
-          d01[j] = fmaf(a, y, d01[j]);
-          d10[j] = fmaf(b, x, d10[j]);
-          dxx[j] = fmaf(b, y, dxx[j]);
-        }
-      }
-    }
-  }
-}
-
-// The inner sequences [lo, hi) that block (o, split) of K5 / K6 takes.  In
-// symmetric mode each unordered pair is taken once: the upper triangle
-// (inner >= o) when `upper`, else the lower one (inner <= o).
-__device__ __forceinline__ void seq_inner_range(int o, int split, int splits,
-                                                int n_in, bool symmetric,
-                                                bool upper, int& lo,
-                                                int& hi) {
-  int first = 0, last = n_in;
-  if (symmetric) {
-    if (upper) first = o;
-    else last = o + 1;
-  }
-  const int per = (last - first + splits - 1) / splits;
-  lo = first + split * per;
-  hi = min(lo + per, last);
-}
-
 }  // namespace gpsig
 
 // Runtime num_levels -> compile-time template argument; returns the launch's
-// cudaError_t as an int, or cudaErrorInvalidValue past kMaxLevels.
+// cudaError_t as an int, or cudaErrorInvalidValue for a level count the
+// library holds no instance of.  The main library holds 1..kMaxLevels; one
+// built with -DGPSIG_EXTRA_LEVELS=M holds M alone.
+#ifdef GPSIG_EXTRA_LEVELS
+static_assert(GPSIG_EXTRA_LEVELS > gpsig::kMaxLevels,
+              "the extra library holds a level count past the main one's");
+#define GPSIG_SWITCH_LEVELS(num_levels, FN, ...)                    \
+  if ((num_levels) == GPSIG_EXTRA_LEVELS)                           \
+    return static_cast<int>(FN<GPSIG_EXTRA_LEVELS>(__VA_ARGS__));   \
+  return static_cast<int>(cudaErrorInvalidValue);
+#else
 #define GPSIG_SWITCH_LEVELS(num_levels, FN, ...)                    \
   switch (num_levels) {                                             \
     case 1: return static_cast<int>(FN<1>(__VA_ARGS__));            \
@@ -308,3 +306,4 @@ __device__ __forceinline__ void seq_inner_range(int o, int split, int splits,
     case 8: return static_cast<int>(FN<8>(__VA_ARGS__));            \
     default: return static_cast<int>(cudaErrorInvalidValue);        \
   }
+#endif

@@ -58,6 +58,9 @@
 // lanes that recompute column nZ - 1 take a zero cotangent and write no
 // gradient.
 //
+// The grid is (nZ / 32, examples); past 65535 examples the launcher runs
+// one launch per slice of 65535 (grid y's limit), in order on the stream.
+//
 // Layouts: vl, dl (lt, d2, nZ) as in K3; xv, xd (N, L, d2); ct
 // (M+1, nZ, N); gz (N, 2, lt, d2, nZ); gx (ceil(nZ/32), N, 2, L, d2);
 // the checkpoint scratch ck (N, ceil(nZ/32), chunks, lt, 32).
@@ -70,6 +73,7 @@ constexpr int kZ = 32;   // inducing tensors per block (lanes)
 constexpr int kTG = 8;   // warps per block; a chunk has at most kTG steps
 constexpr int kThreads = kZ * kTG;
 constexpr int kCB = 8;   // channels per z-side item
+constexpr int kMaxGridY = 65535;  // examples a launch covers (grid y)
 
 constexpr int kRegD2 = 16;  // d2 up to which a thread holds a slot's rows
 
@@ -94,7 +98,7 @@ kzx_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
                const float* __restrict__ xv, const float* __restrict__ xd,
                const float* __restrict__ ct, float* __restrict__ gz,
                float* __restrict__ gx, float* __restrict__ ck, int nz,
-               int n_ex, int L, int d2, int t_chunk, int base,
+               int n_ex, int n0, int L, int d2, int t_chunk, int base,
                int increments, int difference) {
   constexpr int LT = M * (M + 1) / 2;
   extern __shared__ float smem[];
@@ -117,7 +121,7 @@ kzx_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
   const int lane = threadIdx.x, tt = threadIdx.y;  // this thread's step
   const int tid = tt * kZ + lane;
   const int z = blockIdx.x * kZ + lane;
-  const int n = blockIdx.y;
+  const int n = n0 + blockIdx.y;  // launches cover <= 65535 examples each
   const int zc = z < nz ? z : nz - 1;  // edge lanes recompute a live column
   const float* xv_n = xv + static_cast<size_t>(n) * L * d2;
   const float* xd_n = xd + static_cast<size_t>(n) * L * d2;
@@ -249,8 +253,11 @@ kzx_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
 #pragma unroll
       for (int m = r + 2; m <= M; ++m) {
         const int k = m * (m - 1) / 2 + r;
-        s_r[(tt * LT + k) * kZ + lane] =
-            mine ? s_g[(tt * LT + k) * kZ + lane] * Sv[k] : 0.f;
+        // only the chunk's steps: past tc the thread's row is outside
+        // s_r when the chunk holds fewer than kTG steps
+        if (mine)
+          s_r[(tt * LT + k) * kZ + lane] =
+              s_g[(tt * LT + k) * kZ + lane] * Sv[k];
       }
       __syncthreads();
 #pragma unroll
@@ -320,8 +327,10 @@ kzx_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
         const int k = m * (m - 1) / 2 + (m - 1 - r);
         float* gk = s_g + (tt * LT + k) * kZ + lane;
         const float g = mine ? *gk : 0.f;
-        if (mine) *gk = Rb[m] * Sv[k];
-        s_r[(tt * LT + k) * kZ + lane] = Rb[m] * g;
+        if (mine) {
+          *gk = Rb[m] * Sv[k];
+          s_r[(tt * LT + k) * kZ + lane] = Rb[m] * g;
+        }
       }
       __syncthreads();
 #pragma unroll
@@ -448,12 +457,19 @@ cudaError_t launch_kzx_bwd_rows(const float* vl, const float* dl,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
+  // the example index is blockIdx.y (at most 65535 a launch): one launch
+  // per slice of examples, all on the stream in order
   const dim3 block(kZ, kTG);
-  const dim3 grid((nz + kZ - 1) / kZ, n_ex);
-  kzx_bwd_kernel<M, STAGED><<<grid, block, smem, stream>>>(
-      vl, dl, xv, xd, ct, gz, gx, ck, nz, n_ex, L, d2, t_chunk, base,
-      increments, difference);
-  return cudaGetLastError();
+  for (int n0 = 0; n0 < n_ex; n0 += kMaxGridY) {
+    const int count = n_ex - n0 < kMaxGridY ? n_ex - n0 : kMaxGridY;
+    const dim3 grid((nz + kZ - 1) / kZ, count);
+    kzx_bwd_kernel<M, STAGED><<<grid, block, smem, stream>>>(
+        vl, dl, xv, xd, ct, gz, gx, ck, nz, n_ex, n0, L, d2, t_chunk, base,
+        increments, difference);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 // The staged kernel where the wrapper staged the rows (they fit in shared
@@ -484,7 +500,7 @@ extern "C" int gpsig_kzx_bwd(const float* vl, const float* dl,
                              int difference, int t_chunk, int stage_rows,
                              void* stream) {
   if (lt != num_levels * (num_levels + 1) / 2 || nz <= 0 || n_ex <= 0 ||
-      n_ex > 65535 || L <= 0 || d2 <= 0 || t_chunk <= 0 ||
+      L <= 0 || d2 <= 0 || t_chunk <= 0 ||
       t_chunk > gpsig::kTG)
     return static_cast<int>(cudaErrorInvalidValue);
   GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_kzx_bwd, vl, dl, xv, xd, ct,

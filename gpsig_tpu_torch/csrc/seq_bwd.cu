@@ -15,26 +15,39 @@
 //   inner step t: g_iv[t] += W_a00 ov_s + W_d10 od_s,
 //                 g_id[t] += W_d01 ov_s + W_dxx od_s.
 //
-// One sweep per pair, in K5's layout: the shorter sequence on the inner
-// axis (a group of G lanes, lane lg owning steps lg + j G, j < cpl, so at
-// most 128 steps), the longer on the outer axis at any length.  The sweep
-// runs forward once, storing each row's incoming column sums C (the state
-// the reverse needs, read back exact, never recovered by subtraction), and
+// One sweep per pair: the shorter sequence on the inner axis (a group of G
+// lanes, lane lg owning steps lg + j G, j < cpl, of a chunk of at most 128
+// steps), the longer on the outer axis at any length.  The sweep runs
+// forward once, storing each row's incoming column sums C (the state the
+// reverse needs, read back exact, never recovered by subtraction), and
 // then in reverse once, carrying per level D_m[t] = sum_{s'>s} (M *
 // Rbar_{m+1})[s', t] and taking P^T as a reversed exclusive scan over the
 // group.  Both arguments' gradients come out of that one pair of sweeps.
 //
+// An inner sequence longer than one chunk (G cpl steps) is taken in nc
+// chunks with carries between them.  The forward sweeps the chunks in
+// order: for chunk ch, P(R_m)[s, t] is the in-chunk prefix of the column
+// sums plus the row carry Y_m[s] = sum_{s'<s} of row s''s R_m over the
+// chunks before; sweeping chunk ch, row s adds the chunk's column-sum
+// total to Y for chunk ch + 1.  Each chunk's column sums and row carries
+// are stored.  The reverse then takes the chunks last to first: P^T(Y)[s,
+// t] is the in-chunk suffix plus Z_m[s], the same sum over s' > s and the
+// chunks after, which the reverse has already swept and which it adds to
+// in place.  The outer rows' gradients are written by the first chunk the
+// reverse takes and added to by the others (the same lane each time), the
+// inner steps' gradients accumulate per chunk in the workspace.
+//
 // Work split: a warp owns a "set" of 32 / G inner sequences (one per group)
 // and a range of outer sequences, and takes every (outer, set) pair of it
 // in turn; all groups of a warp sweep the same outer rows in lock step.
-//   * The inner rows of the set are staged once in a per-warp workspace,
-//     and the inner steps' gradients accumulate there over every outer row
-//     of the range; the warp writes them once, into a slab per (inner
-//     sequence, range).
+//   * The inner rows of the set (every chunk) are staged once in a
+//     per-warp workspace, and the inner steps' gradients accumulate there
+//     over every outer row of the range; the warp writes them once, into a
+//     slab per (inner sequence, range).
 //   * Each outer row's gradient (2 d2 values a lane) is summed over the
 //     warp -- the group's G lanes and the set's sequences -- by a shuffle
 //     reduce-scatter (common.cuh::warp_reduce_scatter32), and written once
-//     into a slab per (outer sequence, set).
+//     into a slab per (outer sequence, set) (added to chunk by chunk).
 //   The wrapper sums both slabs with torch.sum: no atomics, a fixed order,
 //   a deterministic result.  The workspace (inner rows, inner gradients)
 //   and the column-sum store live in shared memory where they fit, else in
@@ -61,9 +74,8 @@
 // Layouts: ov, od (N_out, L_out, d2) and iv, id (N_in, L_in, d2), the outer
 // and inner arguments (the wrapper's `swap` says which is the first); ct
 // (M+1, N1, N2); slabs g_out (N_out, sets, To, 2, d2) and g_in (N_in,
-// ranges, Ti, 2, d2), T = L - 1 with difference, else L; workspace per
-// warp [2][d2][cpl][32] inner rows then [2][d2][cpl][32] inner gradients,
-// column sums [To][M-1][cpl][32].
+// ranges, Ti, 2, d2), T = L - 1 with difference, else L; workspace and
+// column-sum store per warp as seq_bwd_ws_floats / seq_bwd_cs_floats say.
 #include <cstdint>
 
 #include "common.cuh"
@@ -72,6 +84,19 @@ namespace gpsig {
 namespace {
 
 constexpr int kWarpsPerBlock = kSeqWarps;
+
+// A warp's workspace, nc chunks of [in_v, in_d, acc_v, acc_d][d2][cpl][32],
+// and its column-sum store, nc chunks of [To][M-1][cpl][32] and, with more
+// than one chunk, the row carries [nc][To][M-1][32] and the suffix carries
+// [To][M-1][32] (floats; ops/signature_cuda.py sizes them the same way).
+__host__ __device__ inline size_t seq_bwd_ws_floats(int d2, int cpl, int nc) {
+  return 4 * static_cast<size_t>(d2) * cpl * 32 * nc;
+}
+__host__ __device__ inline size_t seq_bwd_cs_floats(int M, int To, int cpl,
+                                                    int nc) {
+  const size_t per = static_cast<size_t>(To) * (M - 1) * 32;
+  return per * cpl * nc + (nc > 1 ? per * (nc + 1) : 0);
+}
 
 // Four consecutive values p[c .. c+3] of an outer row (zeros past d2): one
 // broadcast float4 load when the rows are 16-byte aligned (vec4).
@@ -150,7 +175,7 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
                float* __restrict__ g_in, float* __restrict__ gscratch,
                int n_out, int L_out, int n_in, int L_in, int d2, int base,
                int difference, int symmetric, int swap, int G, int cpl,
-               int n_ranges, int ws_mode, int vec4) {
+               int nc, int n_ranges, int ws_mode, int vec4) {
   if (D2 > 0) d2 = D2;  // the launcher checked d2 == D2
   constexpr int MC = M > 1 ? M - 1 : 1;
   constexpr int CB = 16 / R;  // channels a contraction round: R x 2 x CB = 32
@@ -169,8 +194,8 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
   const bool live_i = i < n_in;
 
   // this warp's workspace and column-sum store, in shared or global memory
-  const int ws_floats = 4 * d2 * cpl * 32;
-  const int cs_floats = To * (M - 1) * cpl * 32;
+  const size_t ws_floats = seq_bwd_ws_floats(d2, cpl, nc);
+  const size_t cs_floats = seq_bwd_cs_floats(M, To, cpl, nc);
   float* ws;
   float* cs;
   if (ws_mode == 0) {
@@ -183,24 +208,42 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
     ws = gscratch + static_cast<size_t>(wg) * (ws_floats + cs_floats);
     cs = ws + ws_floats;
   }
-  const int cstride = cpl * 32;  // [c][j][lane]: each lane its own slots
-  float* in_v = ws;
-  float* in_d = in_v + d2 * cstride;
-  float* acc_v = in_d + d2 * cstride;
-  float* acc_d = acc_v + d2 * cstride;
+  // inner chunk ch of W = G cpl steps: lane lg owns steps ch W + lg + j G;
+  // its rows and gradients sit at ws + ch * chunk_ws, its column sums at
+  // cs + ch * chunk_cs, [c][j][lane] and [s][k][j][lane]: each lane its
+  // own slots
+  const bool chunked = nc > 1;
+  const int W = G * cpl;
+  const int cstride = cpl * 32;
+  const size_t chunk_ws = 4 * static_cast<size_t>(d2) * cstride;
+  const size_t chunk_cs = static_cast<size_t>(To) * (M - 1) * cstride;
+  // with chunks: the row carries Y[ch][s][k][lane] (P(R_{k+1}) at row s
+  // over the inner steps before chunk ch) and the suffix carries
+  // Z[s][k][lane] (P^T over the steps after the chunk the reverse is on)
+  const size_t chunk_y = static_cast<size_t>(To) * (M - 1) * 32;
+  float* ycar = cs + nc * chunk_cs;
+  float* zcar = ycar + nc * chunk_y;
+  auto carry_at = [&](int s, int k) { return (s * (M - 1) + k) * 32 + lane; };
 
-  // stage the set's inner rows (zeros past the sequence or the set)
-  for (int j = 0; j < cpl; ++j) {
-    const int t = lg + j * G;
-    const bool ok = live_i && t < L_in;
-    const size_t row = (static_cast<size_t>(ok ? i : 0) * L_in +
-                        (ok ? t : 0)) * d2;
-    for (int c = 0; c < d2; ++c) {
-      const int at = c * cstride + j * 32 + lane;
-      in_v[at] = ok ? __ldg(iv + row + c) : 0.f;
-      in_d[at] = ok ? __ldg(id + row + c) : 0.f;
-      acc_v[at] = 0.f;
-      acc_d[at] = 0.f;
+  // stage the set's inner rows, every chunk (zeros past the sequence or
+  // the set)
+  for (int ch = 0; ch < nc; ++ch) {
+    float* in_v = ws + ch * chunk_ws;
+    float* in_d = in_v + d2 * cstride;
+    float* acc_v = in_d + d2 * cstride;
+    float* acc_d = acc_v + d2 * cstride;
+    for (int j = 0; j < cpl; ++j) {
+      const int t = ch * W + lg + j * G;
+      const bool ok = live_i && t < L_in;
+      const size_t row = (static_cast<size_t>(ok ? i : 0) * L_in +
+                          (ok ? t : 0)) * d2;
+      for (int c = 0; c < d2; ++c) {
+        const int at = c * cstride + j * 32 + lane;
+        in_v[at] = ok ? __ldg(iv + row + c) : 0.f;
+        in_d[at] = ok ? __ldg(id + row + c) : 0.f;
+        acc_v[at] = 0.f;
+        acc_d[at] = 0.f;
+      }
     }
   }
 
@@ -210,7 +253,6 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
   const int per = (hi_o + n_ranges - 1) / n_ranges;
   const int o_lo = range * per, o_hi = min(o_lo + per, hi_o);
   const size_t plane = static_cast<size_t>(n_out) * n_in;
-  auto inner_ok = [&](int j) { return j < cpl && lg + j * G < Ti; };
 
   for (int o = o_lo; o < o_hi; ++o) {
     const bool live = live_i && (!sym || i >= o);
@@ -224,13 +266,20 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
     float* gout_o =
         g_out + (static_cast<size_t>(o) * n_sets + set) * To * 2 * d2;
 
-    // forward sweep: store each row's incoming column sums
-    float Cs[MC][CPL];
+    // forward sweeps, chunk by chunk: store each row's incoming column
+    // sums, and with chunks the row carries of the next chunk
+    for (int ch = 0; M > 1 && ch < nc; ++ch) {
+      const float* in_v = ws + ch * chunk_ws;
+      const float* in_d = in_v + d2 * cstride;
+      float* cs_c = cs + ch * chunk_cs;
+      auto inner_ok = [&](int j) {
+        return j < cpl && ch * W + lg + j * G < Ti;
+      };
+      float Cs[MC][CPL];
 #pragma unroll
-    for (int k = 0; k < MC; ++k)
+      for (int k = 0; k < MC; ++k)
 #pragma unroll
-      for (int j = 0; j < CPL; ++j) Cs[k][j] = 0.f;
-    if (M > 1) {
+        for (int j = 0; j < CPL; ++j) Cs[k][j] = 0.f;
       for (int s0 = 0; s0 < To; s0 += R) {
         int srow[R];
 #pragma unroll
@@ -240,18 +289,31 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
                               lane, diff, vec4 != 0, a00, d01, d10, dxx);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          if (s0 + r >= To) break;
+          const int s = s0 + r;
+          if (s >= To) break;
 #pragma unroll
           for (int k = 0; k < M - 1; ++k)
 #pragma unroll
             for (int j = 0; j < CPL; ++j)
               if (j < cpl)
-                cs[(((s0 + r) * (M - 1) + k) * cpl + j) * 32 + lane] =
-                    Cs[k][j];
+                cs_c[((s * (M - 1) + k) * cpl + j) * 32 + lane] = Cs[k][j];
+          // P(R_{m-1}) at this row: the in-chunk prefix plus the row carry
+          // (level M's is needed only for the next chunk's carry)
           float P[MC][CPL];
 #pragma unroll
-          for (int m = 2; m < M; ++m)
-            group_excl_scan(Cs[m - 2], P[m - 2], cpl, lg, G);
+          for (int m = 2; m <= M; ++m) {
+            if (m == M && !chunked) break;
+            const float tot =
+                group_excl_scan(Cs[m - 2], P[m - 2], cpl, lg, G);
+            if (chunked) {
+              const float y = ch > 0 ? ycar[ch * chunk_y + carry_at(s, m - 2)]
+                                     : 0.f;
+#pragma unroll
+              for (int j = 0; j < CPL; ++j) P[m - 2][j] += y;
+              if (ch + 1 < nc)
+                ycar[(ch + 1) * chunk_y + carry_at(s, m - 2)] = y + tot;
+            }
+          }
 #pragma unroll
           for (int j = 0; j < CPL; ++j) {
             const float mv =
@@ -266,144 +328,174 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
       }
     }
 
-    // reverse sweep, R rows at a time from the last
-    float D[MC][CPL];
+    // reverse sweeps, the chunks last to first, R rows at a time from the
+    // last; the outer rows' gradients are written by the first chunk taken
+    // and added to by the others
+    for (int ch = nc - 1; ch >= 0; --ch) {
+      float* in_v = ws + ch * chunk_ws;
+      float* in_d = in_v + d2 * cstride;
+      float* acc_v = in_d + d2 * cstride;
+      float* acc_d = acc_v + d2 * cstride;
+      const float* cs_c = cs + ch * chunk_cs;
+      auto inner_ok = [&](int j) {
+        return j < cpl && ch * W + lg + j * G < Ti;
+      };
+      float D[MC][CPL];
 #pragma unroll
-    for (int k = 0; k < MC; ++k)
+      for (int k = 0; k < MC; ++k)
 #pragma unroll
-      for (int j = 0; j < CPL; ++j) D[k][j] = 0.f;
-    for (int s_hi = To - 1; s_hi >= 0; s_hi -= R) {
-      int srow[R];
+        for (int j = 0; j < CPL; ++j) D[k][j] = 0.f;
+      for (int s_hi = To - 1; s_hi >= 0; s_hi -= R) {
+        int srow[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) srow[r] = max(s_hi - r, 0);
-      // P(R_{m-1}) at each row, from the stored column sums
-      float P[R][MC][CPL];
+        for (int r = 0; r < R; ++r) srow[r] = max(s_hi - r, 0);
+        // P(R_{m-1}) at each row, from the stored column sums
+        float P[R][MC][CPL];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float C[MC][CPL];
+        for (int r = 0; r < R; ++r) {
+          float C[MC][CPL];
 #pragma unroll
-        for (int k = 0; k < MC; ++k)
+          for (int k = 0; k < MC; ++k)
 #pragma unroll
-          for (int j = 0; j < CPL; ++j)
-            C[k][j] = (k < M - 1 && j < cpl && s_hi - r >= 0)
-                          ? cs[((srow[r] * (M - 1) + k) * cpl + j) * 32 + lane]
-                          : 0.f;
+            for (int j = 0; j < CPL; ++j)
+              C[k][j] = (k < M - 1 && j < cpl && s_hi - r >= 0)
+                            ? cs_c[((srow[r] * (M - 1) + k) * cpl + j) * 32 +
+                                   lane]
+                            : 0.f;
 #pragma unroll
-        for (int m = 2; m <= M; ++m)
-          group_excl_scan(C[m - 2], P[r][m - 2], cpl, lg, G);
-      }
-      float W[R][4][CPL], Mv[R][CPL];
-      {
-        float a00[R][CPL], d01[R][CPL], d10[R][CPL], dxx[R][CPL];
-        seq_rows_dots<CPL, R>(ov_o, od_o, srow, in_v, in_d, d2, cstride, cpl,
-                              lane, diff, vec4 != 0, a00, d01, d10, dxx);
+          for (int m = 2; m <= M; ++m) {
+            group_excl_scan(C[m - 2], P[r][m - 2], cpl, lg, G);
+            if (chunked && ch > 0) {
+              const float y = ycar[ch * chunk_y + carry_at(srow[r], m - 2)];
 #pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int j = 0; j < CPL; ++j) {
-            float p[4];
-            Mv[r][j] = slot_gram_zz_partials(a00[r][j], d01[r][j], d10[r][j],
-                                             dxx[r][j], base, diff, p);
-            if (!(inner_ok(j) && s_hi - r >= 0))
-              Mv[r][j] = p[0] = p[1] = p[2] = p[3] = 0.f;
-#pragma unroll
-            for (int w = 0; w < 4; ++w) W[r][w][j] = p[w];
-          }
-      }
-      // Mbar from Rbar_M .. Rbar_1, row by row downwards; D (rows > s) is
-      // read before the row adds to it
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float mbar[CPL], prev[CPL];
-#pragma unroll
-        for (int j = 0; j < CPL; ++j) {
-          prev[j] = g[M];
-          mbar[j] = M >= 2 ? P[r][M >= 2 ? M - 2 : 0][j] * g[M] : g[M];
-        }
-#pragma unroll
-        for (int m = M - 1; m >= 1; --m) {
-          float t[CPL];
-          group_rev_excl_scan(D[m - 1], t, cpl, lg, G);
-#pragma unroll
-          for (int j = 0; j < CPL; ++j) {
-            const float rb = g[m] + t[j];
-            D[m - 1][j] = fmaf(Mv[r][j], prev[j], D[m - 1][j]);
-            mbar[j] = m >= 2 ? fmaf(P[r][m >= 2 ? m - 2 : 0][j], rb, mbar[j])
-                             : mbar[j] + rb;
-            prev[j] = rb;
+              for (int j = 0; j < CPL; ++j) P[r][m - 2][j] += y;
+            }
           }
         }
+        float W[R][4][CPL], Mv[R][CPL];
+        {
+          float a00[R][CPL], d01[R][CPL], d10[R][CPL], dxx[R][CPL];
+          seq_rows_dots<CPL, R>(ov_o, od_o, srow, in_v, in_d, d2, cstride, cpl,
+                                lane, diff, vec4 != 0, a00, d01, d10, dxx);
 #pragma unroll
-        for (int j = 0; j < CPL; ++j)
-#pragma unroll
-          for (int w = 0; w < 4; ++w) W[r][w][j] *= mbar[j];
-      }
-
-      // contractions, CB channels of the R rows at a time: the outer rows'
-      // gradients (summed over the warp) and the inner steps' (accumulated)
-      for (int c0 = 0; c0 < d2; c0 += CB) {
-        float vals[32], oa[R][CB], ob[R][CB];
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int q4 = 0; q4 < CB; q4 += 4) {
-            float t[4];
-            outer4(ov_o + srow[r] * d2, c0 + q4, d2, vec4 != 0, t);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) oa[r][q4 + e] = t[e];
-            if (diff) outer4(od_o + srow[r] * d2, c0 + q4, d2, vec4 != 0, t);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) ob[r][q4 + e] = diff ? t[e] : 0.f;
-          }
-#pragma unroll
-        for (int q = 0; q < CB; ++q) {
-          const int c = c0 + q;
-          float gv[R], gd[R];
-#pragma unroll
-          for (int r = 0; r < R; ++r) gv[r] = gd[r] = 0.f;
-          if (c < d2) {
-            float a[R], b[R];
-#pragma unroll
-            for (int r = 0; r < R; ++r) a[r] = oa[r][q], b[r] = ob[r][q];
+          for (int r = 0; r < R; ++r)
 #pragma unroll
             for (int j = 0; j < CPL; ++j) {
-              if (j < cpl) {
-                const int at = c * cstride + j * 32 + lane;
-                const float x = in_v[at];
-                float av = acc_v[at];
+              float p[4];
+              Mv[r][j] = slot_gram_zz_partials(a00[r][j], d01[r][j], d10[r][j],
+                                               dxx[r][j], base, diff, p);
+              if (!(inner_ok(j) && s_hi - r >= 0))
+                Mv[r][j] = p[0] = p[1] = p[2] = p[3] = 0.f;
 #pragma unroll
-                for (int r = 0; r < R; ++r) {
-                  gv[r] = fmaf(W[r][0][j], x, gv[r]);
-                  gd[r] = fmaf(W[r][2][j], x, gd[r]);
-                  av = fmaf(W[r][0][j], a[r], av);
-                }
-                if (diff) {
-                  const float y = in_d[at];
-                  float ad = acc_d[at];
+              for (int w = 0; w < 4; ++w) W[r][w][j] = p[w];
+            }
+        }
+        // Mbar from Rbar_M .. Rbar_1, row by row downwards; D (rows > s) is
+        // read before the row adds to it
 #pragma unroll
-                  for (int r = 0; r < R; ++r) {
-                    gv[r] = fmaf(W[r][1][j], y, gv[r]);
-                    gd[r] = fmaf(W[r][3][j], y, gd[r]);
-                    av = fmaf(W[r][2][j], b[r], av);
-                    ad = fmaf(W[r][3][j], b[r], fmaf(W[r][1][j], a[r], ad));
-                  }
-                  acc_d[at] = ad;
-                }
-                acc_v[at] = av;
-              }
+        for (int r = 0; r < R; ++r) {
+          const int s = s_hi - r;
+          float mbar[CPL], prev[CPL];
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) {
+            prev[j] = g[M];
+            mbar[j] = M >= 2 ? P[r][M >= 2 ? M - 2 : 0][j] * g[M] : g[M];
+          }
+#pragma unroll
+          for (int m = M - 1; m >= 1; --m) {
+            float t[CPL];
+            const float tot = group_rev_excl_scan(D[m - 1], t, cpl, lg, G);
+            if (chunked && s >= 0) {  // P^T over the chunks after this one
+              const float z =
+                  ch + 1 < nc ? zcar[carry_at(s, m - 1)] : 0.f;
+#pragma unroll
+              for (int j = 0; j < CPL; ++j) t[j] += z;
+              if (ch > 0) zcar[carry_at(s, m - 1)] = z + tot;
+            }
+#pragma unroll
+            for (int j = 0; j < CPL; ++j) {
+              const float rb = g[m] + t[j];
+              D[m - 1][j] = fmaf(Mv[r][j], prev[j], D[m - 1][j]);
+              mbar[j] = m >= 2 ? fmaf(P[r][m >= 2 ? m - 2 : 0][j], rb, mbar[j])
+                               : mbar[j] + rb;
+              prev[j] = rb;
             }
           }
 #pragma unroll
-          for (int r = 0; r < R; ++r) {
-            vals[(2 * r) * CB + q] = gv[r];
-            vals[(2 * r + 1) * CB + q] = gd[r];
+          for (int j = 0; j < CPL; ++j)
+#pragma unroll
+            for (int w = 0; w < 4; ++w) W[r][w][j] *= mbar[j];
+        }
+
+        // contractions, CB channels of the R rows at a time: the outer rows'
+        // gradients (summed over the warp) and the inner steps' (accumulated)
+        for (int c0 = 0; c0 < d2; c0 += CB) {
+          float vals[32], oa[R][CB], ob[R][CB];
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int q4 = 0; q4 < CB; q4 += 4) {
+              float t[4];
+              outer4(ov_o + srow[r] * d2, c0 + q4, d2, vec4 != 0, t);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) oa[r][q4 + e] = t[e];
+              if (diff) outer4(od_o + srow[r] * d2, c0 + q4, d2, vec4 != 0, t);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) ob[r][q4 + e] = diff ? t[e] : 0.f;
+            }
+#pragma unroll
+          for (int q = 0; q < CB; ++q) {
+            const int c = c0 + q;
+            float gv[R], gd[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r) gv[r] = gd[r] = 0.f;
+            if (c < d2) {
+              float a[R], b[R];
+#pragma unroll
+              for (int r = 0; r < R; ++r) a[r] = oa[r][q], b[r] = ob[r][q];
+#pragma unroll
+              for (int j = 0; j < CPL; ++j) {
+                if (j < cpl) {
+                  const int at = c * cstride + j * 32 + lane;
+                  const float x = in_v[at];
+                  float av = acc_v[at];
+#pragma unroll
+                  for (int r = 0; r < R; ++r) {
+                    gv[r] = fmaf(W[r][0][j], x, gv[r]);
+                    gd[r] = fmaf(W[r][2][j], x, gd[r]);
+                    av = fmaf(W[r][0][j], a[r], av);
+                  }
+                  if (diff) {
+                    const float y = in_d[at];
+                    float ad = acc_d[at];
+#pragma unroll
+                    for (int r = 0; r < R; ++r) {
+                      gv[r] = fmaf(W[r][1][j], y, gv[r]);
+                      gd[r] = fmaf(W[r][3][j], y, gd[r]);
+                      av = fmaf(W[r][2][j], b[r], av);
+                      ad = fmaf(W[r][3][j], b[r], fmaf(W[r][1][j], a[r], ad));
+                    }
+                    acc_d[at] = ad;
+                  }
+                  acc_v[at] = av;
+                }
+              }
+            }
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              vals[(2 * r) * CB + q] = gv[r];
+              vals[(2 * r + 1) * CB + q] = gd[r];
+            }
+          }
+          const float red = warp_reduce_scatter32(vals);
+          const int r = lane / (2 * CB), half = (lane / CB) & 1;
+          const int c = c0 + lane % CB, s = s_hi - r;
+          if (c < d2 && s >= 0) {
+            float* dst =
+              gout_o + static_cast<size_t>(s) * 2 * d2 + half * d2 + c;
+            *dst = ch == nc - 1 ? red : *dst + red;
           }
         }
-        const float red = warp_reduce_scatter32(vals);
-        const int r = lane / (2 * CB), half = (lane / CB) & 1;
-        const int c = c0 + lane % CB, s = s_hi - r;
-        if (c < d2 && s >= 0)
-          gout_o[static_cast<size_t>(s) * 2 * d2 + half * d2 + c] = red;
       }
     }
   }
@@ -412,13 +504,17 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
   if (live_i) {
     float* gin_i =
         g_in + (static_cast<size_t>(i) * n_ranges + range) * Ti * 2 * d2;
-    for (int j = 0; j < cpl; ++j) {
-      const int t = lg + j * G;
-      if (t >= Ti) continue;
-      for (int c = 0; c < d2; ++c) {
-        const int at = c * cstride + j * 32 + lane;
-        gin_i[static_cast<size_t>(t) * 2 * d2 + c] = acc_v[at];
-        gin_i[static_cast<size_t>(t) * 2 * d2 + d2 + c] = acc_d[at];
+    for (int ch = 0; ch < nc; ++ch) {
+      const float* acc_v = ws + ch * chunk_ws + 2 * d2 * cstride;
+      const float* acc_d = acc_v + d2 * cstride;
+      for (int j = 0; j < cpl; ++j) {
+        const int t = ch * W + lg + j * G;
+        if (t >= Ti) continue;
+        for (int c = 0; c < d2; ++c) {
+          const int at = c * cstride + j * 32 + lane;
+          gin_i[static_cast<size_t>(t) * 2 * d2 + c] = acc_v[at];
+          gin_i[static_cast<size_t>(t) * 2 * d2 + d2 + c] = acc_d[at];
+        }
       }
     }
   }
@@ -431,11 +527,11 @@ cudaError_t launch_seq_bwd_tiles(const float* ov, const float* od,
                                  float* gscratch, int n_out, int L_out,
                                  int n_in, int L_in, int d2, int base,
                                  int difference, int symmetric, int swap,
-                                 int G, int cpl, int n_ranges, int ws_mode,
-                                 int vec4, cudaStream_t stream) {
+                                 int G, int cpl, int nc, int n_ranges,
+                                 int ws_mode, int vec4, cudaStream_t stream) {
   const int To = difference ? L_out - 1 : L_out;
-  const long long ws = 4LL * d2 * cpl * 32;
-  const long long cs = static_cast<long long>(To) * (M - 1) * cpl * 32;
+  const long long ws = seq_bwd_ws_floats(d2, cpl, nc);
+  const long long cs = seq_bwd_cs_floats(M, To, cpl, nc);
   const long long per_warp = ws_mode == 0 ? ws + cs : ws_mode == 1 ? ws : 0;
   const long long smem = per_warp * kWarpsPerBlock * sizeof(float);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
@@ -454,7 +550,7 @@ cudaError_t launch_seq_bwd_tiles(const float* ov, const float* od,
   seq_bwd_kernel<M, CPL, R, D2><<<static_cast<unsigned>(blocks), kSeqThreads,
                                   static_cast<size_t>(smem), stream>>>(
       ov, od, iv, id, ct, g_out, g_in, gscratch, n_out, L_out, n_in, L_in, d2,
-      base, difference, symmetric, swap, G, cpl, n_ranges, ws_mode, vec4);
+      base, difference, symmetric, swap, G, cpl, nc, n_ranges, ws_mode, vec4);
   return cudaGetLastError();
 }
 
@@ -468,7 +564,7 @@ cudaError_t launch_seq_bwd(const float* ov, const float* od, const float* iv,
                            float* g_in, float* gscratch, int n_out, int L_out,
                            int n_in, int L_in, int d2, int base,
                            int difference, int symmetric, int swap, int G,
-                           int cpl, int n_ranges, int ws_mode,
+                           int cpl, int nc, int n_ranges, int ws_mode,
                            cudaStream_t stream) {
   const int vec4 = d2 % 4 == 0 &&
                    (reinterpret_cast<uintptr_t>(ov) |
@@ -476,16 +572,16 @@ cudaError_t launch_seq_bwd(const float* ov, const float* od, const float* iv,
   if (cpl == 1 && d2 == 16)
     return launch_seq_bwd_tiles<M, 1, 4, 16>(
         ov, od, iv, id, ct, g_out, g_in, gscratch, n_out, L_out, n_in, L_in,
-        d2, base, difference, symmetric, swap, G, cpl, n_ranges, ws_mode,
+        d2, base, difference, symmetric, swap, G, cpl, nc, n_ranges, ws_mode,
         vec4, stream);
   if (cpl == 1)
     return launch_seq_bwd_tiles<M, 1, 4, 0>(
         ov, od, iv, id, ct, g_out, g_in, gscratch, n_out, L_out, n_in, L_in,
-        d2, base, difference, symmetric, swap, G, cpl, n_ranges, ws_mode,
+        d2, base, difference, symmetric, swap, G, cpl, nc, n_ranges, ws_mode,
         vec4, stream);
   return launch_seq_bwd_tiles<M, kSeqCols, 1, 0>(
       ov, od, iv, id, ct, g_out, g_in, gscratch, n_out, L_out, n_in, L_in, d2,
-      base, difference, symmetric, swap, G, cpl, n_ranges, ws_mode, vec4,
+      base, difference, symmetric, swap, G, cpl, nc, n_ranges, ws_mode, vec4,
       stream);
 }
 
@@ -498,18 +594,19 @@ extern "C" int gpsig_seq_bwd(const float* ov, const float* od,
                              float* gscratch, int n_out, int L_out, int n_in,
                              int L_in, int d2, int num_levels, int base,
                              int difference, int symmetric, int swap, int G,
-                             int cpl, int n_ranges, int ws_mode,
+                             int cpl, int nc, int n_ranges, int ws_mode,
                              void* stream) {
   const bool pow2 = G > 0 && (G & (G - 1)) == 0;
   const int To = difference ? L_out - 1 : L_out;
   const int Ti = difference ? L_in - 1 : L_in;
   if (n_out <= 0 || n_in <= 0 || To < 0 || Ti < 0 || d2 <= 0 || !pow2 ||
-      G > 32 || cpl <= 0 || cpl > gpsig::kSeqCols || Ti > G * cpl ||
-      n_ranges <= 0 || ws_mode < 0 || ws_mode > 2 ||
+      G > 32 || cpl <= 0 || cpl > gpsig::kSeqCols || nc < 1 ||
+      Ti > static_cast<long long>(G) * cpl * nc || n_ranges <= 0 ||
+      ws_mode < 0 || ws_mode > 2 ||
       (symmetric && (n_out != n_in || L_out != L_in || swap)))
     return static_cast<int>(cudaErrorInvalidValue);
   GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_seq_bwd, ov, od, iv, id, ct,
                       g_out, g_in, gscratch, n_out, L_out, n_in, L_in, d2,
-                      base, difference, symmetric, swap, G, cpl, n_ranges,
-                      ws_mode, static_cast<cudaStream_t>(stream))
+                      base, difference, symmetric, swap, G, cpl, nc,
+                      n_ranges, ws_mode, static_cast<cudaStream_t>(stream))
 }

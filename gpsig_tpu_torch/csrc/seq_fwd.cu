@@ -10,21 +10,52 @@
 // triangular-ones matmuls with lane-segment carries; here it is one sweep
 // over the outer steps s that carries, per level, the column sums
 // C_m[t] = sum_{s'<s} R_m[s', t], and takes P(R_m)[s, .] as the exclusive
-// prefix of C_m along t -- a segmented warp scan over the lanes.
+// prefix of C_m along t.
 //
-// What bounds it on the card: per entry 4 dots of d2 and up to 3
-// transcendentals (~70 FMA at d2 = 16 and M = 4) -- ~0.3 G FMA for the
-// 500 x 500 Kzz of length-5 inducing sequences, ~0.6 G for Kzx at 500 x 50
-// (5 vs 93 steps), ~1.5 G for a full 50 x 50 Kxx at 93 steps: FMA issue,
-// and the shuffles of the scans.  The design: a group of G lanes (the power
-// of two >= the inner length, at most 32) takes one pair, each lane owning
-// up to 4 inner steps, so a warp runs 32/G pairs at once whatever the
-// lengths (4 x 4, 4 x 92 and 92 x 92 are all one kernel).  A block owns one
-// outer sequence and walks a share of the inner ones, so the outer row
-// loads are warp-wide broadcasts; inner rows come transposed ([d2][L]) so
-// a group's loads are coalesced.  The wrapper puts the longer sequence on
-// the inner axis.  In symmetric mode each unordered pair is computed once
-// and written to both places, so the Gram is exactly symmetric.
+// What bounds it on the card: per entry 4 dots of d2 (64 FMAs at d2 = 16)
+// and 4 transcendentals (expf and 3 common.cuh::expm1_acc: ~75
+// instructions), then ~3 FMAs a level -- ~0.3 G FMAs for the 500 x 500 Kzz
+// of length-5 inducing sequences, ~0.6 G for Kzx at 500 x 50 (5 vs 93
+// steps), ~0.7 G for a full 50 x 50 Kxx at 93 steps: instruction issue,
+// and at Kzz each pair's fixed costs (16 entries a pair).  The previous
+// design spent its time elsewhere: it reread the inner rows through __ldg
+// at every outer step (a load per FMA), a lane owned strided steps so each
+// level took cpl group scans an outer step, and short pairs ran 8 to a
+// warp with group sums of 16 entries.
+//
+// The design:
+//   * A group of G lanes (a power of two <= 32) takes one pair; lane lg
+//     owns the CPL contiguous inner steps c W + lg CPL + j of chunk c (W =
+//     G CPL), their rows held in registers for the whole sweep (REG, d2 <=
+//     16 zero-padded; wider rows sit in a per-warp shared workspace).  So
+//     no inner row is reloaded inside the sweep -- except past ~200
+//     channels (PEMS has 963), where the workspace outgrows shared memory
+//     and the rows are read through L1 at each outer step, as are outer
+//     rows past 2,048 channels.
+//   * A block owns 4 x 32 / G inner sequences and one outer sequence, or
+//     up to 8 short ones in turn over the same inner rows (the Kzz of
+//     4-step pairs); the outer rows are staged in shared memory (128 rows
+//     at a time) and every lane reads them as broadcast float4s: one load
+//     feeds 8 CPL FMAs.
+//   * A level's prefix at an outer step is a serial in-lane prefix over the
+//     lane's CPL steps plus one exclusive scan of the lane totals over the
+//     group: (M-1)(log2 G + 1) shuffles an outer step, none at G = 1.  The
+//     main path's group widths (2 and 32) are compiled in, so a row's
+//     scans are straight-line code, and rows go two an iteration, so the
+//     next row's dots and transcendentals overlap this row's scans.
+//   * Short pairs take few lanes: the Kzz of length-5 inducing sequences
+//     (4 x 4 steps) and Kzx (4 inner steps against 92 outer ones) run with
+//     G = 2, CPL = 2, 16 pairs a warp, one shuffle a level and row.
+//   * Inner sequences longer than a chunk of W steps are taken chunk by
+//     chunk: P(R_m)[s, t] is the in-chunk prefix plus the row carry Y_m[s]
+//     = sum_{s'<s} of row s''s R_m over the chunks before, which the sweep
+//     of the chunk before left, per level and row, in shared memory (a
+//     global scratch past 48 KB a block), double-buffered by chunk.  So any
+//     length on both sides.
+//   The wrapper picks G, CPL, which sequence goes inner and the outer
+//   sequences a block takes from a cost estimate (ops/signature_cuda.py
+//   _k5_plan).  In symmetric mode each unordered pair is computed once and
+//   written to both places, so the Gram is exactly symmetric.
 //
 // Lengths differ natively: no padding to a common length (the TPU padded
 // both to a multiple of 128).  With difference the last step of each
@@ -32,81 +63,236 @@
 // observation), so the sweep stops at L - 1 and repeat padding of a request
 // stays exact; without difference all L observations count.
 //
-// Inputs: outer rows ov, od (N_out, L_out, d2); inner rows transposed ivT,
-// idT (N_in, d2, L_in).  Output out (M+1, N1, N2), written at (m, o, i), or
-// (m, i, o) when `swap` says the outer rows are the second argument's.
+// Inputs: outer rows ov, od (N_out, L_out, d2); inner rows iv, id (N_in,
+// L_in, d2).  Output out (M+1, N1, N2), written at (m, o, i), or (m, i, o)
+// when `swap` says the outer rows are the second argument's.
 #include "common.cuh"
 
 namespace gpsig {
 namespace {
 
-template <int M>
+constexpr int kWarps = kSeqWarps;   // warps a block
+constexpr int kRegD2 = 16;          // channels an inner row holds in REG
+constexpr int kRowChunk = 128;      // outer rows staged at once, at most
+constexpr int kOuterBytes = 16 * 1024;
+constexpr int kCarryBytes = 48 * 1024;  // row carries in shared memory
+constexpr long long kSmemMax = 227 * 1024;  // a block's, on the H100
+
+// CPL: inner steps a lane; REG: inner rows in registers (d2 <= kRegD2);
+// GC: the group width G as a compile-time constant (the plans of the main
+// path: 2 for short inner sequences, 32 for long ones), or 0 for any G, so
+// that a row's scans unroll into straight-line code.
+template <int M, int CPL, bool REG, int GC>
 __global__ void __launch_bounds__(kSeqThreads)
 seq_fwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
-               const float* __restrict__ ivT, const float* __restrict__ idT,
-               float* __restrict__ out, int n_out, int L_out, int n_in,
-               int L_in, int d2, int base, int difference, int symmetric,
-               int swap, int G, int cpl, int splits) {
+               const float* __restrict__ iv, const float* __restrict__ id,
+               float* __restrict__ out, float* __restrict__ gcarry,
+               int n_out, int L_out, int n_in, int L_in, int d2, int base,
+               int difference, int symmetric, int swap, int G_rt, int nc,
+               int orng, int bpr, int rc, int carry_smem, int o_smem,
+               int in_smem) {
   constexpr int MC = M > 1 ? M - 1 : 1;
+  const int G = GC > 0 ? GC : G_rt;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const bool diff = difference != 0, sym = symmetric != 0;
+  const bool chunked = nc > 1;
   const int To = diff ? L_out - 1 : L_out;
   const int Ti = diff ? L_in - 1 : L_in;
-  const int o = blockIdx.x / splits, split = blockIdx.x % splits;
-  const int lg = threadIdx.x % G, gi = threadIdx.x / G;
-  const int gpb = kSeqThreads / G;
-  int lo, hi;
-  seq_inner_range(o, split, splits, n_in, sym, true, lo, hi);
-  const float* ov_o = ov + static_cast<size_t>(o) * L_out * d2;
-  const float* od_o = od + static_cast<size_t>(o) * L_out * d2;
-  const size_t plane = static_cast<size_t>(n_out) * n_in;
+  const int P = 32 / G;                       // pairs a warp
+  const int o0 = blockIdx.x / bpr * orng;  // this block's outer sequences
+  const int i_lo = (sym ? o0 : 0) + (blockIdx.x % bpr) * kWarps * P;
+  if (i_lo >= n_in) return;  // the whole block: before any barrier
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int lg = lane % G, gi = lane / G;
+  const int i = i_lo + warp * P + gi;
+  const bool live = i < n_in;
+  const int ic = live ? i : n_in - 1;  // dead groups sweep a live sequence
+  const int W = G * CPL;
+  const int xs = REG ? kRegD2 : (d2 + 3) & ~3;  // channels of a staged row
 
-  // every group of the block runs the same number of rounds, so the warps
-  // stay converged for the scans; groups past `hi` recompute `lo`
-  for (int i0 = lo; i0 < hi; i0 += gpb) {
-    const int i = i0 + gi;
-    const bool live = i < hi;
-    const size_t inner = static_cast<size_t>(live ? i : lo) * d2 * L_in;
-    float Cs[MC][kSeqCols];  // column sums of R_1 .. R_{M-1} over rows < s
+  // shared memory: outer rows [rc][2][xs] (o_smem), then the row carries
+  // where they fit ([kWarps][2][To][M-1][P]), then (not REG, in_smem) the
+  // inner rows [kWarps][2][d2][32]
+  float* s_o = smem;
+  float* s_c = s_o + (o_smem ? rc * 2 * xs : 0);
+  const size_t carry_warp = 2 * static_cast<size_t>(To) * (M - 1) * P;
+  float* carry = (carry_smem ? s_c : gcarry +
+                  static_cast<size_t>(blockIdx.x) * kWarps * carry_warp) +
+                 warp * carry_warp;
+  float* s_in = s_c + (carry_smem ? kWarps * carry_warp : 0) +
+                warp * 2 * d2 * 32;
+  // row carry of level k + 1 at row s, buffer `par` (chunk parity)
+  auto carry_at = [&](int par, int s, int k) {
+    return ((par * To + s) * (M - 1) + k) * P + gi;
+  };
+  // the lane's inner rows of a chunk (zeros past the sequence), loaded once
+  // for all of the block's outer sequences when the inner side is one chunk
+  float xv[REG ? CPL : 1][kRegD2], xd[REG ? CPL : 1][kRegD2];
+  bool valid[CPL];
+  // not REG: channel c of the lane's inner value row is xin[c * xst] and of
+  // its difference row xin[(d2 + c) * xst] (in_smem), or din[c] (through
+  // L1, rows too wide for shared memory)
+  const float* xin = s_in + lane;
+  const float* din = nullptr;
+  int xst = 32;
+
+  for (int o = o0; o < min(n_out, o0 + orng); ++o) {
+    if (sym && o > i_lo + kWarps * P - 1) break;  // no pair i >= o is left
+    const float* ov_o = ov + static_cast<size_t>(o) * L_out * d2;
+    const float* od_o = od + static_cast<size_t>(o) * L_out * d2;
+
     float acc[M + 1];
-#pragma unroll
-    for (int k = 0; k < MC; ++k)
-#pragma unroll
-      for (int j = 0; j < kSeqCols; ++j) Cs[k][j] = 0.f;
 #pragma unroll
     for (int m = 0; m <= M; ++m) acc[m] = 0.f;
 
-    for (int s = 0; s < To; ++s) {
-      float a00[kSeqCols], d01[kSeqCols], d10[kSeqCols], dxx[kSeqCols];
-      seq_row_dots(ov_o + static_cast<size_t>(s) * d2,
-                   od_o + static_cast<size_t>(s) * d2, ivT + inner,
-                   idT + inner, L_in, d2, lg, G, cpl, diff, a00, d01, d10,
-                   dxx);
-      float Mv[kSeqCols];
+    for (int ch = 0; ch < nc; ++ch) {
+      if (chunked || o == o0) {
 #pragma unroll
-      for (int j = 0; j < kSeqCols; ++j)
-        Mv[j] = (j < cpl && lg + j * G < Ti)
-                    ? slot_gram_zz(a00[j], d01[j], d10[j], dxx[j], base, diff)
-                    : 0.f;
-      // P(R_{m-1})[s, .] for m = 2..M, all from rows < s
-      float P[MC][kSeqCols];
+        for (int j = 0; j < CPL; ++j) {
+          const int t = ch * W + lg * CPL + j;
+          valid[j] = t < Ti;
+          const bool ok = t < L_in;
+          const size_t row =
+              (static_cast<size_t>(ic) * L_in + (ok ? t : 0)) * d2;
+          if (REG) {
 #pragma unroll
-      for (int m = 2; m <= M; ++m) group_excl_scan(Cs[m - 2], P[m - 2], cpl, lg, G);
+            for (int c = 0; c < kRegD2; ++c) {
+              xv[REG ? j : 0][c] = ok && c < d2 ? __ldg(iv + row + c) : 0.f;
+              xd[REG ? j : 0][c] = ok && c < d2 ? __ldg(id + row + c) : 0.f;
+            }
+          } else if (in_smem) {  // CPL == 1: [2][d2][lane]
+            __syncwarp();
+            for (int c = 0; c < d2; ++c) {
+              s_in[c * 32 + lane] = ok ? __ldg(iv + row + c) : 0.f;
+              s_in[(d2 + c) * 32 + lane] = ok ? __ldg(id + row + c) : 0.f;
+            }
+            __syncwarp();
+          } else {  // steps past the sequence are masked by valid[]
+            xin = iv + row, din = id + row, xst = 1;
+          }
+        }
+      }
+      __syncwarp();  // the chunk before's carries are visible to the warp
+      float C[MC][CPL];  // column sums of R_1 .. R_{M-1} over rows < s
 #pragma unroll
-      for (int j = 0; j < kSeqCols; ++j) {
-        acc[1] += Mv[j];
-        if (M > 1) Cs[0][j] += Mv[j];
+      for (int k = 0; k < MC; ++k)
 #pragma unroll
-        for (int m = 2; m <= M; ++m) {
-          const float r = Mv[j] * P[m - 2][j];
-          acc[m] += r;
-          if (m < M) Cs[m - 1][j] += r;
+        for (int j = 0; j < CPL; ++j) C[k][j] = 0.f;
+
+      for (int s0 = 0; s0 < To; s0 += rc) {
+        const int rn = min(rc, To - s0);
+        if (o_smem && (To > rc || ch == 0)) {  // stage outer rows s0 ..
+          __syncthreads();
+          for (int idx = threadIdx.x; idx < rn * 2 * xs; idx += kSeqThreads) {
+            const int r = idx / (2 * xs), h = (idx / xs) % 2, c = idx % xs;
+            const float* src = h ? od_o : ov_o;
+            s_o[idx] = c < d2 ? src[static_cast<size_t>(s0 + r) * d2 + c] : 0.f;
+          }
+          __syncthreads();
+        }
+        // two rows an iteration: the next row's dots and transcendentals do
+        // not wait on this row's scans
+#pragma unroll 2
+        for (int s = s0; s < s0 + rn; ++s) {
+          // the outer row: staged, or (rows too wide) read through L1,
+          // the same address in every lane
+          const float* orow = s_o + (s - s0) * 2 * xs;
+          const float* orow_v = o_smem ? orow : ov_o + s * d2;
+          const float* orow_d = o_smem ? orow + xs : od_o + s * d2;
+          float a00[CPL], d01[CPL], d10[CPL], dxx[CPL];
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) a00[j] = d01[j] = d10[j] = dxx[j] = 0.f;
+          if (REG) {
+            const float4* a4 = reinterpret_cast<const float4*>(orow);
+            const float4* b4 = reinterpret_cast<const float4*>(orow + xs);
+#pragma unroll
+            for (int c4 = 0; c4 < kRegD2 / 4; ++c4) {
+              const float4 p4 = a4[c4];
+              const float a[4] = {p4.x, p4.y, p4.z, p4.w};
+              float b[4] = {0.f, 0.f, 0.f, 0.f};
+              if (diff) {
+                const float4 q4 = b4[c4];
+                b[0] = q4.x, b[1] = q4.y, b[2] = q4.z, b[3] = q4.w;
+              }
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+#pragma unroll
+                for (int j = 0; j < CPL; ++j) {
+                  const float x = xv[REG ? j : 0][4 * c4 + e];
+                  const float y = xd[REG ? j : 0][4 * c4 + e];
+                  a00[j] = fmaf(a[e], x, a00[j]);
+                  d01[j] = fmaf(a[e], y, d01[j]);
+                  d10[j] = fmaf(b[e], x, d10[j]);
+                  dxx[j] = fmaf(b[e], y, dxx[j]);
+                }
+            }
+          } else {
+            for (int c = 0; c < d2; ++c) {
+              const float a = orow_v[c], b = orow_d[c];
+              const float x = xin[c * xst];
+              const float y = in_smem ? xin[(d2 + c) * xst] : din[c];
+              a00[0] = fmaf(a, x, a00[0]);
+              d01[0] = fmaf(a, y, d01[0]);
+              d10[0] = fmaf(b, x, d10[0]);
+              dxx[0] = fmaf(b, y, dxx[0]);
+            }
+          }
+          float Mv[CPL];
+#pragma unroll
+          for (int j = 0; j < CPL; ++j)
+            Mv[j] = valid[j] ? slot_gram_zz<true>(a00[j], d01[j], d10[j],
+                                                  dxx[j], base, diff)
+                             : 0.f;
+          // P(R_{k+1})[s, .] for k = 0 .. M-2: in-lane prefix, one group
+          // scan of the lane totals, the row carry of the chunks before
+          float Pv[MC][CPL];
+#pragma unroll
+          for (int k = 0; k < M - 1; ++k) {
+            float run = 0.f;
+#pragma unroll
+            for (int j = 0; j < CPL; ++j) {
+              Pv[k][j] = run;
+              run += C[k][j];
+            }
+            float incl = run;
+#pragma unroll
+            for (int off = 1; off < (GC > 0 ? GC : 32); off <<= 1) {
+              if (GC == 0 && off >= G) break;
+              const float t = __shfl_up_sync(0xffffffffu, incl, off, G);
+              if (lg >= off) incl += t;
+            }
+            float base_s = __shfl_up_sync(0xffffffffu, incl, 1, G);
+            base_s = lg == 0 ? 0.f : base_s;
+            if (chunked) {
+              const float y = ch > 0 ? carry[carry_at(ch & 1, s, k)] : 0.f;
+              base_s += y;
+              const float tot = __shfl_sync(0xffffffffu, incl, G - 1, G);
+              if (ch + 1 < nc && lg == 0)
+                carry[carry_at((ch + 1) & 1, s, k)] = y + tot;
+            }
+#pragma unroll
+            for (int j = 0; j < CPL; ++j) Pv[k][j] += base_s;
+          }
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) {
+            acc[1] += Mv[j];
+            if (M > 1) C[0][j] += Mv[j];
+#pragma unroll
+            for (int m = 2; m <= M; ++m) {
+              const float r = Mv[j] * Pv[m - 2][j];
+              acc[m] += r;
+              if (m < M) C[m - 1][j] += r;
+            }
+          }
         }
       }
     }
 
 #pragma unroll
     for (int m = 1; m <= M; ++m) acc[m] = group_sum(acc[m], G);
-    if (live && lg == 0) {
+    if (live && lg == 0 && (!sym || i >= o)) {
+      const size_t plane = static_cast<size_t>(n_out) * n_in;
       const size_t at = swap ? static_cast<size_t>(i) * n_out + o
                              : static_cast<size_t>(o) * n_in + i;
       const size_t mirror = static_cast<size_t>(i) * n_in + o;
@@ -121,36 +307,129 @@ seq_fwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
   }
 }
 
-template <int M>
-cudaError_t launch_seq_fwd(const float* ov, const float* od, const float* ivT,
-                           const float* idT, float* out, int n_out, int L_out,
-                           int n_in, int L_in, int d2, int base,
-                           int difference, int symmetric, int swap, int G,
-                           int cpl, int splits, cudaStream_t stream) {
-  const dim3 grid(n_out * splits);
-  seq_fwd_kernel<M><<<grid, kSeqThreads, 0, stream>>>(
-      ov, od, ivT, idT, out, n_out, L_out, n_in, L_in, d2, base, difference,
-      symmetric, swap, G, cpl, splits);
+template <int M, int CPL, bool REG, int GC>
+cudaError_t launch_seq_fwd_tiles(const float* ov, const float* od,
+                                 const float* iv, const float* id, float* out,
+                                 float* gcarry, int n_out, int L_out,
+                                 int n_in, int L_in, int d2, int base,
+                                 int difference, int symmetric, int swap,
+                                 int G, int nc, int orng,
+                                 cudaStream_t stream) {
+  const int To = difference ? L_out - 1 : L_out;
+  const int xs = REG ? kRegD2 : (d2 + 3) & ~3;
+  int rc = kOuterBytes / (2 * xs * static_cast<int>(sizeof(float)));
+  // an outer row pair wider than kOuterBytes is read through L1
+  const int o_smem = rc >= 1 ? 1 : 0;
+  rc = rc < kRowChunk ? rc : kRowChunk;
+  rc = rc < To ? rc : To;
+  rc = rc > 1 ? rc : 1;
+  if (!o_smem) rc = To > 1 ? To : 1;
+  const long long carry_block = nc > 1 ? 2LL * kWarps * To * (M - 1) *
+                                             (32 / G) * sizeof(float)
+                                       : 0;
+  const int carry_smem = carry_block <= kCarryBytes ? 1 : 0;
+  if (!carry_smem && gcarry == nullptr) return cudaErrorInvalidValue;
+  long long smem = (o_smem ? static_cast<long long>(rc) * 2 * xs *
+                                 sizeof(float)
+                           : 0) +
+                   (carry_smem ? carry_block : 0);
+  // not REG: the inner rows in shared memory where they fit, else read
+  // through L1 at each outer step (d2 past ~200)
+  const long long in_bytes = 2LL * kWarps * d2 * 32 * sizeof(float);
+  const int in_smem = !REG && smem + in_bytes <= kSmemMax ? 1 : 0;
+  smem += in_smem ? in_bytes : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        seq_fwd_kernel<M, CPL, REG, GC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int per_block = kWarps * (32 / G);  // inner sequences a block
+  const int bpr = (n_in + per_block - 1) / per_block;
+  const long long blocks =
+      static_cast<long long>((n_out + orng - 1) / orng) * bpr;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  seq_fwd_kernel<M, CPL, REG, GC><<<static_cast<unsigned>(blocks),
+                                    kSeqThreads, static_cast<size_t>(smem),
+                                    stream>>>(
+      ov, od, iv, id, out, gcarry, n_out, L_out, n_in, L_in, d2, base,
+      difference, symmetric, swap, G, nc, orng, bpr, rc, carry_smem, o_smem,
+      in_smem);
   return cudaGetLastError();
+}
+
+// d2 <= 16: inner rows in registers, one or two steps a lane, with the
+// group widths of the main path's plans compiled in; wider rows: one step
+// a lane, its row in shared memory where it fits, else read through L1.
+template <int M>
+cudaError_t launch_seq_fwd(const float* ov, const float* od, const float* iv,
+                           const float* id, float* out, float* gcarry,
+                           int n_out, int L_out, int n_in, int L_in, int d2,
+                           int base, int difference, int symmetric, int swap,
+                           int G, int cpl, int nc, int orng,
+                           cudaStream_t stream) {
+#define GPSIG_SEQ_FWD(CPL, REG, GC)                                          \
+  return launch_seq_fwd_tiles<M, CPL, REG, GC>(                              \
+      ov, od, iv, id, out, gcarry, n_out, L_out, n_in, L_in, d2, base,       \
+      difference, symmetric, swap, G, nc, orng, stream)
+  if (d2 <= kRegD2 && cpl == 2 && G == 2) GPSIG_SEQ_FWD(2, true, 2);
+  if (d2 <= kRegD2 && cpl == 2 && G == 32) GPSIG_SEQ_FWD(2, true, 32);
+  if (d2 <= kRegD2 && cpl == 2) GPSIG_SEQ_FWD(2, true, 0);
+  if (d2 <= kRegD2 && cpl == 1) GPSIG_SEQ_FWD(1, true, 0);
+  if (cpl == 1) GPSIG_SEQ_FWD(1, false, 0);
+#undef GPSIG_SEQ_FWD
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace gpsig
 
+// gcarry: the row carries past kCarryBytes a block, (blocks, 4 warps, 2, To,
+// M-1, 32 / G) floats; may be null otherwise.
 extern "C" int gpsig_seq_fwd(const float* ov, const float* od,
-                             const float* ivT, const float* idT, float* out,
-                             int n_out, int L_out, int n_in, int L_in, int d2,
-                             int num_levels, int base, int difference,
-                             int symmetric, int swap, int G, int cpl,
-                             int splits, void* stream) {
+                             const float* iv, const float* id, float* out,
+                             float* gcarry, int n_out, int L_out, int n_in,
+                             int L_in, int d2, int num_levels, int base,
+                             int difference, int symmetric, int swap, int G,
+                             int cpl, int nc, int orng, void* stream) {
   const bool pow2 = G > 0 && (G & (G - 1)) == 0;
+  const int Ti = difference ? L_in - 1 : L_in;
   if (n_out <= 0 || n_in <= 0 || L_out <= 0 || L_in <= 0 || d2 <= 0 ||
-      !pow2 || G > 32 || cpl <= 0 || cpl > gpsig::kSeqCols ||
-      splits <= 0 || static_cast<long long>(n_out) * splits > 2147483647LL ||
-      (symmetric && (n_out != n_in || L_out != L_in)))
+      !pow2 || G > 32 || cpl < 1 || cpl > 2 || nc < 0 || orng < 1 ||
+      static_cast<long long>(G) * cpl * nc < Ti ||
+      (symmetric && (n_out != n_in || L_out != L_in || swap)))
     return static_cast<int>(cudaErrorInvalidValue);
-  GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_seq_fwd, ov, od, ivT, idT,
-                      out, n_out, L_out, n_in, L_in, d2, base, difference,
-                      symmetric, swap, G, cpl, splits,
+  GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_seq_fwd, ov, od, iv, id, out,
+                      gcarry, n_out, L_out, n_in, L_in, d2, base, difference,
+                      symmetric, swap, G, cpl, nc, orng,
                       static_cast<cudaStream_t>(stream))
+}
+
+// Test hook, not a kernel of any path: for args[i] = (a00, d01, d10, dxx)
+// writes out[i] = (expm1_acc(a00), expm1f(a00), the rbf slot Gram with
+// expm1_acc, the same with expm1f), so that the shorter expm1 is held
+// against float64 alone and where its terms cancel (chip_smoke.py phase
+// 2e, tests/test_torch_cuda_kernels.py).
+namespace gpsig {
+namespace {
+__global__ void expm1_probe_kernel(const float4* __restrict__ args,
+                                   float4* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float4 a = args[i];
+  out[i] = make_float4(expm1_acc(a.x), expm1f(a.x),
+                       slot_gram_zz<true>(a.x, a.y, a.z, a.w, kRbf, true),
+                       slot_gram_zz<false>(a.x, a.y, a.z, a.w, kRbf, true));
+}
+}  // namespace
+}  // namespace gpsig
+
+extern "C" int gpsig_expm1_probe(const float* args, float* out, int n,
+                                 void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  gpsig::expm1_probe_kernel<<<(n + 255) / 256, 256, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(args), reinterpret_cast<float4*>(out),
+      n);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -18,10 +18,12 @@ float32":
 * ``'on'`` on a CPU tensor raises.
 * ``fast_math`` is accepted; every value means full f32 on the card.
 
-No fallback is silent: the kernels tile through any feature width, and the
-seq x seq kernels take up to ``signature_cuda.MAX_STEPS`` steps on their
-inner axis and raise past it.  Without ``difference`` the seq x seq Gram
-takes the reference graph, as the JAX package does.  The Kxx-diagonal leg
+No fallback is silent: the kernels take any sequence lengths, K1 and K3-K6
+any feature width and K1, K2, K4-K6 any number of levels.  Two caps
+remain, each raising ``NotImplementedError`` on the card: K2 (the Kzz
+gradient of inducing tensors) past 140 augmented channels at 4 levels, and
+K3 past 16 levels (ROADMAP, Queue 3).  Without ``difference`` the seq x seq
+Gram takes the reference graph, as the JAX package does.  The Kxx-diagonal leg
 keeps JAX's ``_closed_form_fns`` dispatch: cancellation-free closed forms
 at f32, the naive graph at f64 or under ``'off'``.
 

@@ -9,6 +9,12 @@ keyed by a hash of the sources and flags, so a fresh checkout builds itself
 and an unchanged one reuses its library.  ``ptxas -v`` output (registers,
 shared memory, spills per kernel) is kept beside the library.
 
+The main library holds each kernel's instances for 1 to ``MAIN_LEVELS``
+signature levels.  A call with more levels loads, at its first use, a
+second library built from the same sources with
+``-DGPSIG_EXTRA_LEVELS=M``: one instance of each kernel for that M alone,
+in ``build/kernels/<hash>-m<M>/``, loaded once per M per process.
+
 No ``--use_fast_math``: it would turn ``expf`` into ``__expf`` and lose the
 accuracy the slot-Gram algebra needs (``csrc/common.cuh``).
 """
@@ -29,6 +35,7 @@ _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SOURCES = ("kzz_fwd.cu", "kzz_bwd.cu", "kzx_fwd.cu", "kzx_bwd.cu",
             "seq_fwd.cu", "seq_bwd.cu")
 _HEADERS = ("common.cuh",)
+MAIN_LEVELS = 8  # csrc/common.cuh::kMaxLevels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,13 +54,16 @@ _SIGNATURES = {
     # vl, dl, xv, xd, ct, gz, gx, ck, lt, nz, n_ex, L, d2, num_levels,
     # base, increments, difference, t_chunk, stage_rows, stream
     "gpsig_kzx_bwd": [_P] * 8 + [_I] * 11 + [_P],
-    # ov, od, ivT, idT, out, n_out, L_out, n_in, L_in, d2, num_levels, base,
-    # difference, symmetric, swap, group, cpl, splits, stream
-    "gpsig_seq_fwd": [_P] * 5 + [_I] * 13 + [_P],
+    # ov, od, iv, id, out, carry, n_out, L_out, n_in, L_in, d2, num_levels,
+    # base, difference, symmetric, swap, group, cpl, chunks, outer range,
+    # stream
+    "gpsig_seq_fwd": [_P] * 6 + [_I] * 14 + [_P],
     # ov, od, iv, id, ct, g_out, g_in, scratch, n_out, L_out, n_in, L_in,
     # d2, num_levels, base, difference, symmetric, swap, group, cpl,
-    # ranges, workspace mode, stream
-    "gpsig_seq_bwd": [_P] * 8 + [_I] * 14 + [_P],
+    # chunks, ranges, workspace mode, stream
+    "gpsig_seq_bwd": [_P] * 8 + [_I] * 15 + [_P],
+    # args (n, 4), out (n, 4), n, stream: a test hook of common.cuh's expm1
+    "gpsig_expm1_probe": [_P] * 2 + [_I] + [_P],
 }
 
 
@@ -78,8 +88,14 @@ def _nvcc() -> str:
     )
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(num_levels: int) -> tuple[str, ...]:
+    if num_levels <= MAIN_LEVELS:
+        return NVCC_FLAGS
+    return NVCC_FLAGS + (f"-DGPSIG_EXTRA_LEVELS={num_levels}",)
+
+
+def _digest(flags=NVCC_FLAGS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for name in _HEADERS + _SOURCES:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
@@ -104,10 +120,15 @@ def _run(cmds) -> str:
     return "".join(outputs)
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernels unless this source hash is built already.
-    Returns (library path, ptxas report)."""
-    out_dir = _BUILD_ROOT / _digest()
+def build(num_levels: int = 1) -> tuple[Path, str]:
+    """Compile the library that holds ``num_levels`` (the main one up to
+    ``MAIN_LEVELS``, else the one for that level count) unless this source
+    hash is built already.  Returns (library path, ptxas report)."""
+    flags = _flags(num_levels)
+    tag = _digest(flags)
+    if num_levels > MAIN_LEVELS:
+        tag += f"-m{num_levels}"
+    out_dir = _BUILD_ROOT / tag
     lib_path = out_dir / "libgpsig_kernels.so"
     report_path = out_dir / "ptxas.txt"
     if lib_path.exists() and report_path.exists():
@@ -115,7 +136,7 @@ def build() -> tuple[Path, str]:
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), os.getpid()
     objs = [out_dir / f"{Path(src).stem}.{tag}.o" for src in _SOURCES]
-    report = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(_CSRC / src)]
+    report = _run([[nvcc, *flags, "-c", "-o", str(obj), str(_CSRC / src)]
                    for src, obj in zip(_SOURCES, objs)])
     tmp = out_dir / f"libgpsig_kernels.{tag}.so"
     _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
@@ -124,10 +145,16 @@ def build() -> tuple[Path, str]:
     return lib_path, report
 
 
-@functools.lru_cache(maxsize=1)
-def load() -> KernelLibrary:
-    """Build (if needed) and load the kernel library once per process."""
-    path, report = build()
+def load(num_levels: int = 1) -> KernelLibrary:
+    """Build (if needed) and load, once per process, the library that
+    holds ``num_levels``: the main one for up to ``MAIN_LEVELS``, else the
+    one built for that level count."""
+    return _load(num_levels if num_levels > MAIN_LEVELS else 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _load(num_levels: int) -> KernelLibrary:
+    path, report = build(num_levels)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

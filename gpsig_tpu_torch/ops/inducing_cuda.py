@@ -17,7 +17,9 @@ built from the same algebra in torch ops, and a launch counter
 else.  A wrapper runs its plain version only because the tensors it was
 given lie on the CPU; on a CUDA tensor it launches the kernel or raises
 (float64, an unsupported base, mixed devices).  There is no fallback from a
-failed build or launch.
+failed build or launch.  Any number of levels: past
+``_cuda_build.MAIN_LEVELS`` the wrappers load a library built for that level
+count at its first use.
 
 ``_KzzFn`` and ``_KzxFn`` tie each forward to its backward as
 ``torch.autograd.Function``s over the augmented rows, the counterpart of the
@@ -46,8 +48,11 @@ from .signature import (cumsum_exclusive,
 
 SUPPORTED_BASES = ("rbf", "linear")
 _BASE_IDS = {"rbf": 0, "linear": 1}  # csrc/common.cuh::Base
-MAX_LEVELS = 8  # csrc/common.cuh::kMaxLevels
 _K2_TILE = 16  # csrc/kzz_bwd.cu::kTile
+_SMEM_MAX = 227 * 1024  # shared memory a block may take on the H100
+# K3 keeps the block's sub-chain sums, M(M+1)(M+2)/6 a lane, in shared
+# memory beside one warp's (csrc/kzx_fwd.cu): at most 16 levels
+_K3_MAX_LEVELS = 16
 _K4_LANES = 32  # csrc/kzx_bwd.cu::kZ
 _K4_MAX_CHUNK = 8  # time steps a K4 block stages at once: csrc/kzx_bwd.cu::kTG
 _K4_SMEM = 64 * 1024  # K4's shared memory for a chunk of steps
@@ -126,10 +131,11 @@ def _check_cuda(name: str, *tensors):
             )
 
 
-def _launch(fn_name: str, *args):
+def _launch(fn_name: str, num_levels: int, *args):
+    """Call ``fn_name`` of the library that holds ``num_levels``."""
     from . import _cuda_build
 
-    rc = getattr(_cuda_build.load().lib, fn_name)(*args)
+    rc = getattr(_cuda_build.load(num_levels).lib, fn_name)(*args)
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed to launch: cudaError {rc}")
 
@@ -183,14 +189,12 @@ def kzz_fwd(Vl, Dl, Vr, Dr, *, num_levels: int, base: str,
         return kzz_fwd_plain(Vl, Dl, Vr, Dr, num_levels=num_levels,
                              base=base, increments=increments)
     _check_cuda("kzz_fwd", Vl, Dl, Vr, Dr)
-    if num_levels > MAX_LEVELS:
-        raise ValueError(f"kzz_fwd is built for up to {MAX_LEVELS} levels")
     Vl, Dl, Vr, Dr = (t.contiguous() for t in (Vl, Dl, Vr, Dr))
     out = torch.empty((num_levels + 1, nz, nz), dtype=torch.float32,
                       device=Vl.device)
-    _launch("gpsig_kzz_fwd", Vl.data_ptr(), Dl.data_ptr(), Vr.data_ptr(),
-            Dr.data_ptr(), out.data_ptr(), lt, nz, d2, num_levels,
-            _BASE_IDS[base], int(increments), _stream(Vl))
+    _launch("gpsig_kzz_fwd", num_levels, Vl.data_ptr(), Dl.data_ptr(),
+            Vr.data_ptr(), Dr.data_ptr(), out.data_ptr(), lt, nz, d2,
+            num_levels, _BASE_IDS[base], int(increments), _stream(Vl))
     kzz_fwd.launches += 1
     return out
 
@@ -314,18 +318,24 @@ def kzz_bwd(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
         return kzz_bwd_plain(Vl, Dl, Vr, Dr, ct, num_levels=num_levels,
                              base=base, increments=increments)
     _check_cuda("kzz_bwd", Vl, Dl, Vr, Dr, ct)
-    if num_levels > MAX_LEVELS:
-        raise ValueError(f"kzz_bwd is built for up to {MAX_LEVELS} levels")
+    # csrc/kzz_bwd.cu::kzz_bwd_smem_floats: a level's rows, weights and
+    # accumulators all in shared memory
+    smem = 4 * num_levels * _K2_TILE * (6 * d2 + 4 + 4 * _K2_TILE)
+    if smem > _SMEM_MAX:
+        raise NotImplementedError(
+            f"kzz_bwd: K2 holds a level's rows in shared memory, {smem} bytes "
+            f"at d2={d2} and {num_levels} levels, past the card's {_SMEM_MAX}"
+            " (ROADMAP Queue 3)")
     Vl, Dl, Vr, Dr, ct = (t.contiguous() for t in (Vl, Dl, Vr, Dr, ct))
     tiles = -(-nz // _K2_TILE)
     per = -(-tiles // min(tiles, -(-_TARGET_BLOCKS // (2 * tiles))))
     splits = -(-tiles // per)
     out = torch.empty((2, splits, 2, lt, nz, d2), dtype=torch.float32,
                       device=Vl.device)
-    _launch("gpsig_kzz_bwd", Vl.data_ptr(), Dl.data_ptr(), Vr.data_ptr(),
-            Dr.data_ptr(), ct.data_ptr(), out.data_ptr(), lt, nz, d2,
-            num_levels, _BASE_IDS[base], int(increments), splits, per,
-            _stream(Vl))
+    _launch("gpsig_kzz_bwd", num_levels, Vl.data_ptr(), Dl.data_ptr(),
+            Vr.data_ptr(), Dr.data_ptr(), ct.data_ptr(), out.data_ptr(), lt,
+            nz, d2, num_levels, _BASE_IDS[base], int(increments), splits,
+            per, _stream(Vl))
     kzz_bwd.launches += 1
     g = torch.sum(out, dim=1)
     return g[0, 0], g[0, 1], g[1, 0], g[1, 1]
@@ -373,11 +383,13 @@ def kzx_fwd(Vl, Dl, Xv, Xd, *, num_levels: int, base: str, increments: bool,
     """K3 on CUDA float32 tensors; the plain version on CPU tensors.
 
     Replaces ``_kernel_zx_fwd`` (``gpsig_tpu/ops/inducing_pallas.py:697``).
-    Bound on the H100: exp/FMA issue -- per (z, n, t) about lt slots x 4
-    dots of d2 plus 3 transcendentals -- and the few (z, n) pairs to run in
-    parallel.  Design: the time recursion is one register-carried sweep;
-    a block's warps compute a time chunk's slot Grams in parallel into
-    shared memory before one warp sweeps it (``csrc/kzx_fwd.cu``)."""
+    Bound on the H100: instruction issue -- per (z, n, t) lt slot Grams of
+    4 dots of d2 and up to 4 accurate transcendentals.  Design: a block of
+    8 warps owns 32 inducing tensors (their rows staged in shared memory)
+    and one example; each warp takes a range of a chunk's steps with
+    register-tiled dots and sums every sub-chain of each level's slots over
+    it, and the ranges are chained in time order by Chen's identity
+    (``csrc/kzx_fwd.cu``)."""
     lt, nz, d2 = Vl.shape
     n_ex, L, _ = Xv.shape
     _check_config(num_levels, base, lt)
@@ -388,19 +400,17 @@ def kzx_fwd(Vl, Dl, Xv, Xd, *, num_levels: int, base: str, increments: bool,
                              base=base, increments=increments,
                              difference=difference)
     _check_cuda("kzx_fwd", Vl, Dl, Xv, Xd)
-    if num_levels > MAX_LEVELS:
-        raise ValueError(f"kzx_fwd is built for up to {MAX_LEVELS} levels")
-    if n_ex > 65535:
-        raise ValueError("kzx_fwd takes at most 65535 examples per call")
-    # the kernel reads the inducing rows as (lt, d2, nZ): coalesced per warp
-    VlT = Vl.transpose(1, 2).contiguous()
-    DlT = Dl.transpose(1, 2).contiguous()
-    Xv, Xd = Xv.contiguous(), Xd.contiguous()
+    if num_levels > _K3_MAX_LEVELS:
+        raise NotImplementedError(
+            f"kzx_fwd: K3 takes at most {_K3_MAX_LEVELS} levels on the card "
+            "(its sub-chain sums outgrow shared memory past that)")
+    Vl, Dl, Xv, Xd = (t.contiguous() for t in (Vl, Dl, Xv, Xd))
     out = torch.empty((num_levels + 1, nz, n_ex), dtype=torch.float32,
                       device=Vl.device)
-    _launch("gpsig_kzx_fwd", VlT.data_ptr(), DlT.data_ptr(), Xv.data_ptr(),
-            Xd.data_ptr(), out.data_ptr(), lt, nz, n_ex, L, d2, num_levels,
-            _BASE_IDS[base], int(increments), int(difference), _stream(Vl))
+    _launch("gpsig_kzx_fwd", num_levels, Vl.data_ptr(), Dl.data_ptr(),
+            Xv.data_ptr(), Xd.data_ptr(), out.data_ptr(), lt, nz, n_ex, L,
+            d2, num_levels, _BASE_IDS[base], int(increments),
+            int(difference), _stream(Vl))
     kzx_fwd.launches += 1
     return out
 
@@ -515,7 +525,9 @@ def kzx_bwd(Vl, Dl, Xv, Xd, ct, *, num_levels: int, base: str,
     The x-side gradient is summed over the lanes by a shuffle
     reduce-scatter into a per-lane-block slab, the z side over the chunks
     into a per-example slab; both slabs are summed here with ``torch.sum``
-    (deterministic, no atomics; ``csrc/kzx_bwd.cu``)."""
+    (deterministic, no atomics; ``csrc/kzx_bwd.cu``).  Past 65,535
+    examples (the grid's y limit) the C launcher loops, one CUDA launch per
+    slice of 65,535 examples; ``kzx_bwd.launches`` counts calls."""
     lt, nz, d2 = Vl.shape
     n_ex, L, _ = Xv.shape
     _check_config(num_levels, base, lt)
@@ -528,10 +540,6 @@ def kzx_bwd(Vl, Dl, Xv, Xd, ct, *, num_levels: int, base: str,
                              base=base, increments=increments,
                              difference=difference)
     _check_cuda("kzx_bwd", Vl, Dl, Xv, Xd, ct)
-    if num_levels > MAX_LEVELS:
-        raise ValueError(f"kzx_bwd is built for up to {MAX_LEVELS} levels")
-    if n_ex > 65535:
-        raise ValueError("kzx_bwd takes at most 65535 examples per call")
     VlT = Vl.transpose(1, 2).contiguous()
     DlT = Dl.transpose(1, 2).contiguous()
     Xv, Xd, ct = Xv.contiguous(), Xd.contiguous(), ct.contiguous()
@@ -549,10 +557,11 @@ def kzx_bwd(Vl, Dl, Xv, Xd, ct, *, num_levels: int, base: str,
                      device=Vl.device)
     ck = torch.empty((n_ex, n_zb, -(-T // t_chunk), lt, _K4_LANES),
                      dtype=torch.float32, device=Vl.device)
-    _launch("gpsig_kzx_bwd", VlT.data_ptr(), DlT.data_ptr(), Xv.data_ptr(),
-            Xd.data_ptr(), ct.data_ptr(), gz.data_ptr(), gx.data_ptr(),
-            ck.data_ptr(), lt, nz, n_ex, L, d2, num_levels, _BASE_IDS[base],
-            int(increments), int(difference), t_chunk, int(stage), _stream(Vl))
+    _launch("gpsig_kzx_bwd", num_levels, VlT.data_ptr(), DlT.data_ptr(),
+            Xv.data_ptr(), Xd.data_ptr(), ct.data_ptr(), gz.data_ptr(),
+            gx.data_ptr(), ck.data_ptr(), lt, nz, n_ex, L, d2, num_levels,
+            _BASE_IDS[base], int(increments), int(difference), t_chunk,
+            int(stage), _stream(Vl))
     kzx_bwd.launches += 1
     gz = torch.sum(gz, dim=0).transpose(-1, -2)
     gx = torch.sum(gx, dim=0)

@@ -13,8 +13,11 @@ Each has a plain PyTorch version beside it (``seq_fwd_plain``,
 counter (``seq_fwd.launches``, ``seq_bwd.launches``) that rises by one per
 kernel launch and nowhere else.  A wrapper runs its plain version only
 because the tensors it was given lie on the CPU; on a CUDA tensor it
-launches the kernel or raises (float64, an unsupported base, more levels or
-steps than the kernels are built for).  There is no fallback.
+launches the kernel or raises (float64, an unsupported base).  There is no
+fallback.  Both sequences may have any length: the kernels take a long
+inner sequence in chunks with carries between them (``_k5_plan``,
+``_k6_plan``), and any number of levels (past ``_cuda_build.MAIN_LEVELS``
+from a library built for that level count).
 
 ``_SeqFn`` ties K5 to K6 as a ``torch.autograd.Function`` over the
 augmented rows; the host prep stays in torch so autograd carries the
@@ -43,20 +46,27 @@ from torch.autograd.function import once_differentiable
 from . import gram
 from . import inducing_cuda as ic
 
-MAX_STEPS = 32 * 4  # inner steps a group holds: csrc/common.cuh kSeqCols x 32
 _THREADS = 128  # csrc/common.cuh::kSeqThreads
 _WARPS = _THREADS // 32
 _PLAIN_BLOCK = 1 << 21  # increment-Gram entries per block of the plain versions
-# blocks to aim for: 8 blocks of 4 warps on each of an H100's 132 SMs, since
-# a group's sweep is a chain of dependent FMAs, shuffles and exps that only
-# other warps can hide
-_TARGET_BLOCKS = 8 * 132
-# K6: warps to aim for (16 on each SM), and the shared memory a block of 4
+# K5 (csrc/seq_fwd.cu): rows of at most _K5_REG_D2 channels sit in registers,
+# two inner steps a lane (wider rows: one); the row carries of a block sit
+# in shared memory up to _K5_CARRY_SMEM bytes
+_K5_REG_D2 = 16
+_K5_CARRY_SMEM = 48 * 1024
+# a K5 block takes up to _K5_OUTER_RANGE outer sequences, of at most
+# _K5_OUTER_STEPS steps in all, over the same inner rows
+_K5_OUTER_RANGE = 8
+_K5_OUTER_STEPS = 32
+# K6: warps to aim for (16 on each SM), the shared memory a block of 4
 # warps may take for its workspaces and column sums (all of it: four blocks
-# an SM; the workspaces alone: two)
+# an SM; the workspaces alone: two), the inner steps a chunk holds
+# (csrc/common.cuh kSeqCols x 32), and the global scratch it may take
 _TARGET_WARPS = 16 * 132
 _K6_SMEM_ALL = 56 * 1024
 _K6_SMEM_WS = 100 * 1024
+_K6_CHUNK = 4 * 32
+_K6_SCRATCH = 2 << 30
 
 
 def _check_config(num_levels: int, base: str, order: int = 1):
@@ -227,31 +237,33 @@ def seq_bwd_plain(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
 # ---------------------------------------------------------------------------
 
 
-def _group(T: int) -> tuple[int, int]:
-    """(lanes G, steps per lane) of a group holding T inner steps."""
+def _k5_plan(T_in: int, d2: int) -> tuple[int, int, int]:
+    """(G, cpl, chunks) of K5 with ``T_in`` steps on its inner axis: two
+    steps a lane where the rows fit in registers (else one), the group
+    width G the least power of two that holds the sequence, at most 32,
+    and chunks of G cpl steps past that.  The main path's plans: G = 2
+    for the 4-step inducing sequences (Kzz, Kzx), G = 32 in two chunks
+    for the 92-step data of a full Kxx."""
+    cpl = 2 if d2 <= _K5_REG_D2 else 1
+    T = max(T_in, 1)
     G = 1
-    while G < min(max(T, 1), 32):
+    while G < 32 and G * cpl < T:
         G *= 2
-    return G, -(-max(T, 1) // G)
+    return G, cpl, -(-T // (G * cpl))
 
 
-def _splits(n_out: int, n_in: int, G: int) -> int:
-    """Blocks per outer sequence: enough blocks to fill the card, no more
-    than there are rounds of inner sequences."""
-    want = -(-_TARGET_BLOCKS // n_out)
-    return max(1, min(want, -(-n_in // (_THREADS // G))))
-
-
-def _check_steps(name: str, T1: int, T2: int):
-    if min(T1, T2) > MAX_STEPS:
-        raise ValueError(
-            f"{name} holds at most {MAX_STEPS} steps of the shorter "
-            f"sequence on its inner axis; got {T1} and {T2} steps")
-
-
-def _check_levels(name: str, num_levels: int):
-    if num_levels > ic.MAX_LEVELS:
-        raise ValueError(f"{name} is built for up to {ic.MAX_LEVELS} levels")
+def _k6_plan(T_in: int) -> tuple[int, int, int]:
+    """(G, cpl, chunks) of K6 with ``T_in`` steps on its inner axis: one
+    chunk of G cpl steps up to ``_K6_CHUNK`` (G the power of two >= the
+    steps, at most 32), else chunks of 32 cpl steps, cpl <= 4."""
+    T = max(T_in, 1)
+    if T <= _K6_CHUNK:
+        G = 1
+        while G < min(T, 32):
+            G *= 2
+        return G, -(-T // G), 1
+    nc = -(-T // _K6_CHUNK)
+    return 32, -(-T // (32 * nc)), nc
 
 
 def seq_fwd(Vl, Dl, Vr, Dr, *, num_levels: int, base: str, difference: bool,
@@ -259,14 +271,15 @@ def seq_fwd(Vl, Dl, Vr, Dr, *, num_levels: int, base: str, difference: bool,
     """K5 on CUDA float32 tensors; the plain version on CPU tensors.
 
     Replaces ``_kernel_fwd`` (``gpsig_tpu/ops/signature_pallas.py:436``).
-    Bound on the H100: per increment entry 4 dots of d2 and up to 3
-    transcendentals, so FMA issue (~0.01 ms for the 500 x 500 Kzz of
-    length-5 sequences, ~0.02 ms for Kzx at 500 x 50 and 5 vs 93 steps, at
-    67 TFLOP/s).  Design: a group of lanes per pair sweeps the outer steps,
-    carrying each level's column sums, and takes the 2-D exclusive prefix
-    as a segmented warp scan along the inner steps; the longer sequence
-    goes on the inner axis, which holds at most ``MAX_STEPS`` steps
-    (``csrc/seq_fwd.cu``)."""
+    Bound on the H100: instruction issue -- per increment entry 4 dots of
+    d2 and 4 accurate transcendentals.  Design: a group of G lanes per pair
+    holds the inner rows in registers, each lane a contiguous run of steps,
+    and sweeps the outer steps (staged in shared memory, read as
+    broadcasts), carrying each level's column sums; a level's prefix is an
+    in-lane prefix plus one scan of the lane totals.  An inner sequence
+    longer than a chunk of G cpl steps is taken chunk by chunk with row
+    carries, so both sides take any length.  The shorter sequence goes on
+    the inner axis; G and cpl come from ``_k5_plan`` (``csrc/seq_fwd.cu``)."""
     _check_config(num_levels, base)
     _check_rows("seq_fwd", Vl, Dl, Vr, Dr, symmetric)
     if Vl.device.type == "cpu":
@@ -274,24 +287,32 @@ def seq_fwd(Vl, Dl, Vr, Dr, *, num_levels: int, base: str, difference: bool,
                              base=base, difference=difference,
                              symmetric=symmetric)
     ic._check_cuda("seq_fwd", Vl, Dl, Vr, Dr)
-    _check_levels("seq_fwd", num_levels)
     (n1, L1, d2), (n2, L2, _) = Vl.shape, Vr.shape
     T1, T2 = _steps(L1, difference), _steps(L2, difference)
-    _check_steps("seq_fwd", T1, T2)
-    swap = not symmetric and (MAX_STEPS >= T1 > T2 or T2 > MAX_STEPS)
+    swap = not symmetric and T1 < T2  # the shorter sequence inner
+    G, cpl, nc = _k5_plan(min(T1, T2), d2)
     outer, inner = ((Vr, Dr), (Vl, Dl)) if swap else ((Vl, Dl), (Vr, Dr))
-    ov, od = (t.contiguous() for t in outer)
-    ivT, idT = (t.transpose(1, 2).contiguous() for t in inner)
-    n_out, L_out = ov.shape[0], ov.shape[1]
-    n_in, L_in = ivT.shape[0], ivT.shape[2]
-    G, cpl = _group(T1 if swap else T2)
-    splits = _splits(n_out, n_in, G)
+    ov, od, iv, id_ = (t.contiguous() for t in (*outer, *inner))
+    (n_out, L_out, _), (n_in, L_in, _) = ov.shape, iv.shape
+    # outer sequences a block takes: short ones share the inner rows
+    T_out = _steps(L_out, difference)
+    orng = max(1, min(_K5_OUTER_RANGE, _K5_OUTER_STEPS // max(T_out, 1)))
+    # csrc/seq_fwd.cu: the row carries, in a global scratch past
+    # _K5_CARRY_SMEM bytes a block
+    per_warp = 2 * T_out * (num_levels - 1) * (32 // G)
+    gcarry = None
+    if nc > 1 and 4 * _WARPS * per_warp > _K5_CARRY_SMEM:
+        blocks = -(-n_out // orng) * -(-n_in // (_WARPS * (32 // G)))
+        gcarry = torch.empty((blocks * _WARPS * per_warp,),
+                             dtype=torch.float32, device=Vl.device)
     out = torch.empty((num_levels + 1, n1, n2), dtype=torch.float32,
                       device=Vl.device)
-    ic._launch("gpsig_seq_fwd", ov.data_ptr(), od.data_ptr(), ivT.data_ptr(),
-               idT.data_ptr(), out.data_ptr(), n_out, L_out, n_in, L_in, d2,
-               num_levels, ic._BASE_IDS[base], int(difference),
-               int(symmetric), int(swap), G, cpl, splits, ic._stream(Vl))
+    ic._launch("gpsig_seq_fwd", num_levels, ov.data_ptr(), od.data_ptr(),
+               iv.data_ptr(), id_.data_ptr(), out.data_ptr(),
+               0 if gcarry is None else gcarry.data_ptr(), n_out, L_out,
+               n_in, L_in, d2, num_levels, ic._BASE_IDS[base],
+               int(difference), int(symmetric), int(swap), G, cpl, nc, orng,
+               ic._stream(Vl))
     seq_fwd.launches += 1
     return out
 
@@ -307,14 +328,15 @@ def seq_bwd(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
     Bound on the H100: per increment entry K5's dots and transcendentals
     twice (the forward and the reverse sweep) and 8 d2 FMAs of weight
     contraction, so FMA issue and the shared-memory traffic of the
-    contractions.  Design: one forward and one reverse sweep per pair in
-    K5's layout -- the shorter sequence on the inner axis (at most
-    ``MAX_STEPS`` steps), the longer on the outer axis at any length -- and
-    both arguments' gradients from it.  A warp owns a set of inner sequences
-    and a range of outer ones: the inner steps' gradients accumulate in a
-    per-warp workspace, each outer row's is summed over the warp by a
-    shuffle reduce-scatter; the forward sweep stores each row's column sums,
-    so the reverse reads P(R) exact, never recovered by subtraction.  The
+    contractions.  Design: one forward and one reverse sweep per pair --
+    the shorter sequence on the inner axis, in chunks of at most 128 steps
+    with row and suffix carries between them (``_k6_plan``), the longer on
+    the outer axis -- and both arguments' gradients from it.  A warp owns a
+    set of inner sequences and a range of outer ones: the inner steps'
+    gradients accumulate in a per-warp workspace, each outer row's is
+    summed over the warp by a shuffle reduce-scatter; the forward sweep
+    stores each row's column sums, so the reverse reads P(R) exact, never
+    recovered by subtraction.  The
     per-(inner, range) and per-(outer, set) slabs are summed here with
     ``torch.sum`` (no atomics, deterministic; ``csrc/seq_bwd.cu``)."""
     _check_config(num_levels, base)
@@ -327,9 +349,7 @@ def seq_bwd(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
                              base=base, difference=difference,
                              symmetric=symmetric)
     ic._check_cuda("seq_bwd", Vl, Dl, Vr, Dr, ct)
-    _check_levels("seq_bwd", num_levels)
     T1, T2 = _steps(L1, difference), _steps(L2, difference)
-    _check_steps("seq_bwd", T1, T2)
     grads = [torch.zeros_like(t) for t in (Vl, Dl, Vr, Dr)]
     if symmetric:
         ct = _fold(ct)
@@ -340,21 +360,25 @@ def seq_bwd(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
     ov, od, iv, id_, ct = (t.contiguous() for t in (ov, od, iv, id_, ct))
     (n_out, L_out, _), (n_in, L_in, _) = ov.shape, iv.shape
     T_out, T_in = _steps(L_out, difference), _steps(L_in, difference)
-    G, cpl = _group(T_in)
+    G, cpl, nc = _k6_plan(T_in)
     n_sets = -(-n_in // (32 // G))
-    ranges = max(1, min(n_out, -(-_TARGET_WARPS // n_sets)))
-    if not symmetric:  # no empty range
-        ranges = -(-n_out // -(-n_out // ranges))
-    # csrc/seq_bwd.cu: per warp a workspace of inner rows and gradients and
-    # a store of column sums, in shared memory where a block's fit
-    ws = 4 * d2 * cpl * 32  # floats
-    cs = T_out * (num_levels - 1) * cpl * 32
+    # csrc/seq_bwd.cu (seq_bwd_ws_floats, seq_bwd_cs_floats): per warp a
+    # workspace of inner rows and gradients and a store of column sums (and
+    # with chunks their carries), in shared memory where a block's fit
+    ws = 4 * d2 * cpl * 32 * nc  # floats
+    per = T_out * (num_levels - 1) * 32
+    cs = per * cpl * nc + (per * (nc + 1) if nc > 1 else 0)
     if 4 * _WARPS * (ws + cs) <= _K6_SMEM_ALL:  # bytes, a block of 4 warps
         mode, scratch = 0, 0
     elif 4 * _WARPS * ws <= _K6_SMEM_WS:
         mode, scratch = 1, cs
     else:
         mode, scratch = 2, ws + cs
+    ranges = max(1, min(n_out, -(-_TARGET_WARPS // n_sets)))
+    if scratch:  # at most _K6_SCRATCH bytes of global scratch
+        ranges = max(1, min(ranges, _K6_SCRATCH // (4 * scratch * n_sets)))
+    if not symmetric:  # no empty range
+        ranges = -(-n_out // -(-n_out // ranges))
     dev = Vl.device
     g_out = (torch.zeros if symmetric else torch.empty)(
         (n_out, n_sets, T_out, 2, d2), dtype=torch.float32, device=dev)
@@ -362,11 +386,11 @@ def seq_bwd(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
                        device=dev)
     gscratch = torch.empty((max(1, scratch * n_sets * ranges),),
                            dtype=torch.float32, device=dev)
-    ic._launch("gpsig_seq_bwd", ov.data_ptr(), od.data_ptr(), iv.data_ptr(),
-               id_.data_ptr(), ct.data_ptr(), g_out.data_ptr(),
+    ic._launch("gpsig_seq_bwd", num_levels, ov.data_ptr(), od.data_ptr(),
+               iv.data_ptr(), id_.data_ptr(), ct.data_ptr(), g_out.data_ptr(),
                g_in.data_ptr(), gscratch.data_ptr(), n_out, L_out, n_in,
                L_in, d2, num_levels, ic._BASE_IDS[base], int(difference),
-               int(symmetric), int(swap), G, cpl, ranges, mode,
+               int(symmetric), int(swap), G, cpl, nc, ranges, mode,
                ic._stream(Vl))
     seq_bwd.launches += 1
     g_out, g_in = torch.sum(g_out, dim=1), torch.sum(g_in, dim=1)
@@ -378,6 +402,21 @@ def seq_bwd(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
 
 
 seq_bwd.launches = 0
+
+
+def expm1_probe(args):
+    """Test hook of ``csrc/common.cuh``'s expm1 on a CUDA float32 tensor
+    args (n, 4) = (a00, d01, d10, dxx) rows: (n, 4) = (expm1_acc(a00),
+    expm1f(a00), the rbf slot Gram of the row with expm1_acc -- as K3 and
+    K5 compute it -- and with expm1f).  Not a kernel of any path."""
+    ic._check_cuda("expm1_probe", args)
+    if args.ndim != 2 or args.shape[1] != 4:
+        raise ValueError(f"expm1_probe: args of shape {tuple(args.shape)}")
+    args = args.contiguous()
+    out = torch.empty_like(args)
+    ic._launch("gpsig_expm1_probe", 1, args.data_ptr(), out.data_ptr(),
+               args.shape[0], ic._stream(args))
+    return out
 
 
 # ---------------------------------------------------------------------------

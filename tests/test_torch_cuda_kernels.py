@@ -228,9 +228,6 @@ def test_seq_kernels_raise_on_the_card(cuda):
     with pytest.raises(TypeError, match="float32"):
         sc.seq_fwd(*(t.double() for t in rows), num_levels=M_LVL,
                    base="rbf", difference=True)
-    long_rows = _seq_rows(cuda, "rbf", L1=140, L2=140)
-    with pytest.raises(ValueError, match="at most 128 steps"):
-        sc.seq_fwd(*long_rows, num_levels=M_LVL, base="rbf", difference=True)
 
 
 def _long_rows(cuda, n1, L1, n2, L2, dtype, seed=7):
@@ -262,16 +259,222 @@ def test_seq_bwd_takes_a_long_outer_sequence(cuda, n1, L1, n2, L2):
                  sc.seq_bwd_plain(*rows64, ct.double(), **kw))
 
 
-def test_seq_bwd_raises_where_seq_fwd_raises(cuda):
-    rows = _seq_rows(cuda, "rbf", L1=140, L2=140)
-    ct = torch.zeros((M_LVL + 1, 7, 5), device=cuda)
-    with pytest.raises(ValueError, match="at most 128 steps"):
-        sc.seq_bwd(*rows, ct, num_levels=M_LVL, base="rbf", difference=True)
+def _fwd_close(out, ref):
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((out.double() - ref.double()).abs().max()) <= 1e-4 * scale
 
 
-@pytest.mark.parametrize("kernel", ["kzx_bwd", "seq_bwd"])
+@pytest.mark.parametrize("n1,L1,n2,L2,sym", [
+    (7, 140, 5, 300, False), (5, 300, 7, 140, False), (6, 300, 6, 300, True),
+    (3, 1918, 2, 600, False)])
+def test_seq_kernels_take_both_sides_past_128_steps(cuda, n1, L1, n2, L2,
+                                                    sym):
+    """K5 and K6 with both sequences longer than one inner chunk (up to
+    WalkvsRun's 1,918 observations): the inner axis is taken in chunks with
+    carries; held against the f32 and the f64 plain versions."""
+    kw = dict(num_levels=M_LVL, base="rbf", difference=True, symmetric=sym)
+    rows = _long_rows(cuda, n1, L1, n2, L2, torch.float32)
+    if sym:
+        rows = (*rows[:2], *ic._prep_seq(
+            torch.as_tensor(np.random.RandomState(7).randn(n1, L1, 14)
+                            / np.sqrt(L1), dtype=torch.float32, device=cuda),
+            "rbf"))
+    ct = torch.randn((M_LVL + 1, n1, n2), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(13))
+    before = (sc.seq_fwd.launches, sc.seq_bwd.launches)
+    out = sc.seq_fwd(*rows, **kw)
+    grads = sc.seq_bwd(*rows, ct, **kw)
+    torch.cuda.synchronize()
+    assert (sc.seq_fwd.launches, sc.seq_bwd.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    if sym:
+        assert torch.equal(out, out.transpose(1, 2))
+    rows64 = [t.double() for t in rows]
+    _fwd_close(out, sc.seq_fwd_plain(*rows, **kw))
+    _fwd_close(out, sc.seq_fwd_plain(*rows64, **kw))
+    _grads_close(grads, sc.seq_bwd_plain(*rows, ct, **kw))
+    _grads_close([g.double() for g in grads],
+                 sc.seq_bwd_plain(*rows64, ct.double(), **kw))
+
+
+def test_kzx_kernels_past_65535_examples(cuda):
+    """K3 and K4 at 70,000 examples in one call (the grid's y limit was
+    65,535), against the plain versions on slices of the examples."""
+    n, nz = 70_000, 32
+    _, zx = _inputs(cuda, "rbf", True, nz=nz, n=n, L=6)
+    kw = dict(num_levels=M_LVL, base="rbf", increments=True, difference=True)
+    ct = torch.randn((M_LVL + 1, nz, n), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(14))
+    before = (ic.kzx_fwd.launches, ic.kzx_bwd.launches)
+    out = ic.kzx_fwd(*zx, **kw)
+    g_vl, g_dl, g_xv, g_xd = ic.kzx_bwd(*zx, ct, **kw)
+    torch.cuda.synchronize()
+    assert (ic.kzx_fwd.launches, ic.kzx_bwd.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    Vl, Dl, Xv, Xd = zx
+    ref_vl, ref_dl = torch.zeros_like(Vl), torch.zeros_like(Dl)
+    for a in range(0, n, 10_000):
+        b = min(n, a + 10_000)
+        part = (Vl, Dl, Xv[a:b], Xd[a:b])
+        assert _bound(out[:, :, a:b], ic.kzx_fwd_plain(*part, **kw))
+        p_vl, p_dl, p_xv, p_xd = ic.kzx_bwd_plain(*part, ct[:, :, a:b], **kw)
+        _grads_close((g_xv[a:b], g_xd[a:b]), (p_xv, p_xd))
+        ref_vl += p_vl
+        ref_dl += p_dl
+    _grads_close((g_vl, g_dl), (ref_vl, ref_dl))
+
+
+def _all_kernels_at(cuda, m):
+    """K1-K6 at m levels against their plain versions."""
+    rng = np.random.RandomState(15)
+    lt = m * (m + 1) // 2
+    Z = torch.as_tensor(rng.randn(lt, 20, 2, 3) * 0.3, dtype=torch.float32,
+                        device=cuda)
+    X = torch.as_tensor(rng.randn(4, 12, 3) / 4, dtype=torch.float32,
+                        device=cuda)
+    zz = (*ic._prep_tensors(Z, "rbf", True, lhs=True),
+          *ic._prep_tensors(Z, "rbf", True, lhs=False))
+    zx = (*zz[:2], *ic._prep_seq(X, "rbf"))
+    kw = dict(num_levels=m, base="rbf", increments=True)
+    kwx = dict(kw, difference=True)
+    assert _bound(ic.kzz_fwd(*zz, **kw), ic.kzz_fwd_plain(*zz, **kw))
+    assert _bound(ic.kzx_fwd(*zx, **kwx), ic.kzx_fwd_plain(*zx, **kwx))
+    cz = torch.randn((m + 1, 20, 20), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(16))
+    cx = torch.randn((m + 1, 20, 4), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(17))
+    _grads_close(ic.kzz_bwd(*zz, cz, **kw), ic.kzz_bwd_plain(*zz, cz, **kw))
+    _grads_close(ic.kzx_bwd(*zx, cx, **kwx),
+                 ic.kzx_bwd_plain(*zx, cx, **kwx))
+    rows = _long_rows(cuda, 5, 14, 3, 40, torch.float32)
+    kws = dict(num_levels=m, base="rbf", difference=True)
+    cs = torch.randn((m + 1, 5, 3), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(18))
+    _fwd_close(sc.seq_fwd(*rows, **kws), sc.seq_fwd_plain(*rows, **kws))
+    _grads_close(sc.seq_bwd(*rows, cs, **kws),
+                 sc.seq_bwd_plain(*rows, cs, **kws))
+
+
+def test_kernels_at_nine_levels(cuda):
+    """num_levels = 9, past the main library's 8: K1-K6 from the library
+    built for that level count, against their plain versions."""
+    _all_kernels_at(cuda, 9)
+
+
+def test_kernels_at_ten_levels(cuda):
+    """num_levels = 10: K3's eight range states no longer fit in shared
+    memory beside the block's, so they are chained four at a time; K1-K6
+    against their plain versions.  Past 16 levels K3 raises, clearly."""
+    _all_kernels_at(cuda, 10)
+    m = 17
+    _, zx = _inputs(cuda, "rbf", True, nz=4, n=2, L=5, d=2)
+    zx = [t[:1].expand(m * (m + 1) // 2, *t.shape[1:]) if i < 2 else t
+          for i, t in enumerate(zx)]
+    with pytest.raises(NotImplementedError, match="at most 16 levels"):
+        ic.kzx_fwd(*zx, num_levels=m, base="rbf", increments=True,
+                   difference=True)
+
+
+@pytest.mark.parametrize("T_in", [63, 64, 65, 127, 128, 129, 256, 257])
+def test_seq_kernels_at_chunk_boundaries(cuda, T_in):
+    """K5 and K6 with the inner sequence one step short of, at and one past
+    a chunk boundary (K5: chunks of 64 steps; K6: one chunk up to 128, then
+    chunks of 32 cpl), against the f64 plain versions."""
+    kw = dict(num_levels=M_LVL, base="rbf", difference=True)
+    rows = _long_rows(cuda, 3, 301, 2, T_in + 1, torch.float32)
+    ct = torch.randn((M_LVL + 1, 3, 2), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(20))
+    out = sc.seq_fwd(*rows, **kw)
+    grads = sc.seq_bwd(*rows, ct, **kw)
+    torch.cuda.synchronize()
+    rows64 = [t.double() for t in rows]
+    _fwd_close(out, sc.seq_fwd_plain(*rows64, **kw))
+    _grads_close([g.double() for g in grads],
+                 sc.seq_bwd_plain(*rows64, ct.double(), **kw))
+
+
+def _paths(rng, n, l, d, v, cuda):
+    """Paths from 0 to a shared direction v (|v| ~ 1) plus a random walk
+    of half its size: at any width |x_t|^2 stays O(1), and the increments
+    of any two paths correlate, so that the levels are O(1)."""
+    t = np.linspace(0.0, 1.0, l)[:, None]
+    walk = np.cumsum(rng.randn(n, l, d), 1) / np.sqrt(l * d)
+    return torch.as_tensor(t * v + 0.5 * walk, dtype=torch.float32,
+                           device=cuda)
+
+
+def test_kernels_at_pems_width(cuda):
+    """PEMS's 963 features: K5 and K6 (inner rows past shared memory, read
+    through L1) on the Kzz of length-5 inducing sequences and their Kzx
+    against 144-step data, and K1, K3, K4 on inducing tensors, against the
+    f64 plain versions.  K2 keeps a level's rows in shared memory and
+    raises at this width."""
+    d, rng = 963, np.random.RandomState(21)
+    v = rng.randn(d) / np.sqrt(d)
+    Z, X = _paths(rng, 6, 5, d, v, cuda), _paths(rng, 3, 145, d, v, cuda)
+    kws = dict(num_levels=M_LVL, base="rbf", difference=True)
+    for A, B, sym in ((Z, Z, True), (Z, X, False)):
+        rows = (*ic._prep_seq(A, "rbf", lhs=True), *ic._prep_seq(B, "rbf"))
+        ct = torch.randn((M_LVL + 1, A.shape[0], B.shape[0]), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(22))
+        out = sc.seq_fwd(*rows, symmetric=sym, **kws)
+        grads = sc.seq_bwd(*rows, ct, symmetric=sym, **kws)
+        rows64 = [t.double() for t in rows]
+        _fwd_close(out, sc.seq_fwd_plain(*rows64, symmetric=sym, **kws))
+        _grads_close([g.double() for g in grads], sc.seq_bwd_plain(
+            *rows64, ct.double(), symmetric=sym, **kws))
+    Zt = torch.as_tensor(rng.randn(LT, 20, 2, d) / np.sqrt(d),
+                         dtype=torch.float32, device=cuda)
+    zz = (*ic._prep_tensors(Zt, "rbf", True, lhs=True),
+          *ic._prep_tensors(Zt, "rbf", True, lhs=False))
+    zx = (*zz[:2], *ic._prep_seq(X, "rbf"))
+    kw = dict(num_levels=M_LVL, base="rbf", increments=True)
+    kwx = dict(kw, difference=True)
+    assert _bound(ic.kzz_fwd(*zz, **kw), ic.kzz_fwd_plain(*zz, **kw))
+    assert _bound(ic.kzx_fwd(*zx, **kwx), ic.kzx_fwd_plain(*zx, **kwx))
+    cx = torch.randn((M_LVL + 1, 20, 3), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(23))
+    _grads_close(ic.kzx_bwd(*zx, cx, **kwx),
+                 ic.kzx_bwd_plain(*zx, cx, **kwx))
+    cz = torch.randn((M_LVL + 1, 20, 20), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(24))
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        ic.kzz_bwd(*zz, cz, **kw)
+
+
+def test_short_expm1_against_float64(cuda):
+    """common.cuh's expm1_acc, which K3 and K5 call in place of CUDA's
+    expm1f: within 5 ulp of float64 expm1 on a dense grid of [-1, 1], at
+    the switch at +-0.41 and near 0; and the rbf slot Gram exp(a)
+    (expm1(d01 + d10 + dxx) - expm1(d01) - expm1(d10)), whose terms cancel,
+    within 16 float32 epsilons of the sum of its terms' magnitudes."""
+    x = np.concatenate([np.linspace(-1, 1, 1 << 20),
+                        0.41 + np.linspace(-1e-3, 1e-3, 1 << 12),
+                        -0.41 + np.linspace(-1e-3, 1e-3, 1 << 12),
+                        np.geomspace(1e-9, 0.1, 1 << 12),
+                        -np.geomspace(1e-9, 0.1, 1 << 12)]).astype(np.float32)
+    rng = np.random.RandomState(25)
+    k = 1 << 18
+    combo = np.stack([rng.uniform(-1, 0.5, k), rng.uniform(-0.6, 0.6, k),
+                      rng.uniform(-0.6, 0.6, k),
+                      rng.uniform(-0.05, 0.05, k)], 1).astype(np.float32)
+    args = np.concatenate([np.stack([x, *np.zeros((3, len(x)))], 1),
+                           combo]).astype(np.float32)
+    out = sc.expm1_probe(torch.as_tensor(args, device=cuda)).cpu().numpy()
+    want = np.expm1(x.astype(np.float64))
+    ulp = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
+    assert float(np.max(np.abs(out[:len(x), 0] - want) / ulp)) <= 5
+    a, d01, d10, dxx = combo.astype(np.float64).T
+    terms = [np.expm1(d01 + d10 + dxx), np.expm1(d01), np.expm1(d10)]
+    g = np.exp(a) * (terms[0] - terms[1] - terms[2])
+    unit = np.exp(a) * sum(np.abs(t) for t in terms) * 2.0 ** -23
+    assert float(np.max(np.abs(out[len(x):, 2] - g) / unit)) <= 16
+
+
+@pytest.mark.parametrize("kernel", ["kzx_bwd", "seq_bwd", "seq_bwd_chunks"])
 def test_backward_kernels_are_deterministic(cuda, kernel):
-    """Two launches on the same inputs give bit-identical gradients."""
+    """Two launches on the same inputs give bit-identical gradients (K6 also
+    on pairs whose inner side spans three chunks)."""
     if kernel == "kzx_bwd":
         _, zx = _inputs(cuda, "rbf", True, nz=70, n=5, L=40)
         ct = torch.randn((M_LVL + 1, 70, 5), device=cuda,
@@ -281,8 +484,10 @@ def test_backward_kernels_are_deterministic(cuda, kernel):
             return ic.kzx_bwd(*zx, ct, num_levels=M_LVL, base="rbf",
                               increments=True, difference=True)
     else:
-        rows = _long_rows(cuda, 60, 5, 9, 150, torch.float32)
-        ct = torch.randn((M_LVL + 1, 60, 9), device=cuda,
+        n1, L1, n2, L2 = ((60, 5, 9, 150) if kernel == "seq_bwd"
+                          else (4, 300, 3, 400))
+        rows = _long_rows(cuda, n1, L1, n2, L2, torch.float32)
+        ct = torch.randn((M_LVL + 1, n1, n2), device=cuda,
                          generator=torch.Generator(cuda).manual_seed(9))
 
         def run():
@@ -290,6 +495,24 @@ def test_backward_kernels_are_deterministic(cuda, kernel):
                               difference=True)
     first, second = run(), run()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_forward_kernels_at_wide_rows(cuda):
+    """Rows wider than the fast paths hold: K3 with d2 > 16 reads the
+    inducing rows through L1 in two channel blocks, and K5 with d2 > 16
+    keeps its inner rows in shared memory; both against their f32 plain
+    versions."""
+    _, zx = _inputs(cuda, "rbf", True, nz=40, n=3, L=12, d=20)
+    kw = dict(num_levels=M_LVL, base="rbf", increments=True, difference=True)
+    assert _bound(ic.kzx_fwd(*zx, **kw), ic.kzx_fwd_plain(*zx, **kw))
+    rng = np.random.RandomState(19)
+    X = torch.as_tensor(rng.randn(3, 40, 70) / 40, dtype=torch.float32,
+                        device=cuda)
+    X2 = torch.as_tensor(rng.randn(2, 100, 70) / 40, dtype=torch.float32,
+                         device=cuda)
+    rows = (*ic._prep_seq(X, "rbf", lhs=True), *ic._prep_seq(X2, "rbf"))
+    kws = dict(num_levels=M_LVL, base="rbf", difference=True)
+    _fwd_close(sc.seq_fwd(*rows, **kws), sc.seq_fwd_plain(*rows, **kws))
 
 
 def test_backward_kernels_at_wide_rows(cuda):
