@@ -10,17 +10,18 @@ and prints no result line):
 
 1. device: require CUDA, print versions and the card's name and power
    limit, build the hand-written kernels from ``gpsig_tpu_torch/csrc`` --
-   the main library (1-8 levels) and, beside it, the ones for 9 and 10
+   the main library (1-8 levels) and, beside it, the ones for 9, 10 and 17
    levels -- and print each's build time and ptxas's registers and stack
-   frame for K3 and K5 at 4 levels, every kernel at 9 and K3 at 10 (the
-   whole report goes to the details file);
+   frame for K1, K2, K3 and K5 at 4 levels, every kernel at 9 and 17 and
+   K3 at 10 (the whole report goes to the details file);
 2. kernels: K1 (Kzz) and K3 (Kzx) on the card at the benchmark shape
    (lt=10, nZ=500, d=14, N=32 and 50, L=93) and at ragged shapes, each held
    against its plain PyTorch version at f32 (<= 1e-5 * max(scale, 1)) and
    at f64 (<= 1e-4 * max(scale, 1)); K2 and K4, their backward kernels,
    under a random cotangent at the same shapes against their plain
    versions at f32 and f64 (<= 1e-4 * max(scale, 1): the gradients sum
-   many more terms in another order); K5 (seq x seq) and K6 (its backward)
+   many more terms in another order); K1 and K2 in both modes (all pairs;
+   symmetric, the main path's); K5 (seq x seq) and K6 (its backward)
    under the same bounds at the shapes of the inducing-sequences model --
    500 sequences of length 5 (symmetric), 500 x 50 at 5 vs 93 steps, 50 at
    93 (symmetric), 500 x 50 at 5 vs 205 steps in both argument orders --
@@ -28,18 +29,19 @@ and prints no result line):
    (symmetric), 20 at the reference runner's max_len 500 (symmetric), 7 x
    5 at 300 vs WalkvsRun's 1,918 in both orders -- and ragged 7 x 5 at 11
    vs 18 (rbf and linear, difference on and off); symmetric outputs must
-   be exactly symmetric, and K4 and K6 launched twice on the same inputs
-   must give bit-identical gradients; K3 and K4 at 70,000 examples in one
-   call (32 inducing tensors, L=6; the plain versions on slices of 10,000),
-   and K1-K6 at 9 and 10 levels; each level of a forward level stack and
-   each gradient is held to the bounds at its own scale; then
-   common.cuh's short expm1 (K3's and K5's) against float64 on a dense
-   grid, alone (<= 5 ulp) and in the cancelling slot Gram (<= 16 float32
-   epsilons of its terms); and at PEMS's 963 features, K5/K6 on the Kzz
-   and Kzx of
-   500 length-5 inducing sequences against 50 examples of 144 steps, K1,
-   K3, K4 on 500 inducing tensors, and K2 raising its documented
-   NotImplementedError;
+   be exactly symmetric, and K2, K4 and K6 launched twice on the same
+   inputs must give bit-identical gradients; K3 and K4 at 70,000 examples
+   in one call (32 inducing tensors, L=6; the plain versions on slices of
+   10,000), K1-K6 at 9, 10 and 17 levels and K2 also at 17 levels and
+   d2 = 42; each level of a forward level stack and each gradient is held
+   to the bounds at its own scale; then common.cuh's short expm1 (K1's,
+   K2's, K3's and K5's) against float64 on a dense grid, alone (<= 5 ulp)
+   and in the cancelling slot Gram and its partials (<= 16 float32
+   epsilons of their terms); at PEMS's 963 features, K5/K6 on the Kzz and
+   Kzx of 500 length-5 inducing sequences against 50 examples of 144
+   steps, and K1-K4 on 500 inducing tensors; and ``fused_tensor_levels``
+   launching K1 and K2 once each, in symmetric mode, its output exactly
+   symmetric;
 3. serving: an SVGP at the benchmark width (SignatureRBF d=14 M=4, 500
    incremental inducing tensors, MultiClass C=10) behind a bucketed
    ``serving.Predictor`` with ``fused='on'`` answers ragged requests; K1's
@@ -68,22 +70,28 @@ and prints no result line):
    get a gradient, and K5 and K6 launch exactly twice a training step
    (Kzz and Kzx), K1-K4 never;
 4. times: the six kernels against their plain versions with CUDA events,
-   interleaved plain / kernel / kernel / plain (K3 at N = 1, 8, 32 and 50,
-   K5 and K6 also at the N=50, L=315 full Kxx, K1-K6 at 9 levels once;
-   K3 at N = 1 and 8 also from a CUDA graph, the launch alone); request
-   latency per
-   bucket and training steps/s (median of 20 synchronized steps after 5
-   warm-up steps) with a ``torch.profiler`` breakdown of a step, for both
-   models.
+   interleaved plain / kernel / kernel / plain (K1 and K2 in both modes
+   with both bounds, each unordered pair counted once and every ordered
+   pair; K3 at N = 1, 8, 32 and 50, K5 and K6 also at the N=50, L=315 full
+   Kxx, K1-K6 at 9 and 17 levels once; K1, K2 and K3 at N = 1 and 8 also
+   from a CUDA graph, the launch alone); request latency per bucket and
+   training steps/s (median of 20 synchronized steps after 5 warm-up
+   steps) with a ``torch.profiler`` breakdown of a step, for both models.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``build/chip_smoke.json``.  The script imports nothing of JAX.
+
+``python3 chip_smoke.py --kernel-times`` builds the main library and runs
+phase 4a alone, printing its rows as one JSON line: a copy of the script
+in another checkout times that checkout's kernels, so two trees can be
+compared in one call.
 """
 
 from __future__ import annotations
 
 import importlib
+import inspect
 import json
 import re
 import subprocess
@@ -114,6 +122,10 @@ UWAVE, MAX_LEN, WALK = 315, 500, 1918  # benchmarks/datasets.json; the
 MANY, MANY_NZ, MANY_L = 70_000, 32, 6  # examples past the 65,535 grid limit
 EXTRA_LEVELS = 9  # past the main library's 8
 WIDE_LEVELS = 10  # K3 chains its range states four warps at a time
+MANY_LEVELS = 17  # K3 past its chained states (its serial path)
+LEVEL_LIBS = (EXTRA_LEVELS, WIDE_LEVELS, MANY_LEVELS)
+WIDE_K2_D = 40  # d2 = 42 at 17 levels: past what a K2 holding a level's
+# rows in shared memory could take
 PEMS_D, PEMS_L = 963, 144  # PEMS: 963 features, 144 observations
 # (benchmarks/datasets.json)
 KERNELS = {  # name: (module, source, TPU kernel it replaces)
@@ -152,7 +164,7 @@ def card_line() -> str:
 
 _PTXAS_ENTRY = re.compile(
     r"Compiling entry function '_Z\w*?((?:kzz|kzx|seq)_(?:fwd|bwd)_"
-    r"(?:kernel|combine))I(\w*?)EEv")
+    r"(?:kernel|serial_kernel|combine))I(\w*?)EEv")
 _PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
@@ -189,10 +201,10 @@ def print_ptxas(rows, keep) -> None:
                   "bytes spill stores / loads")
 
 
-def build_libraries(build_mod):
-    """Phase 1: the main library and the 9- and 10-level ones, built at
-    once (each runs one nvcc per source); returns {levels: (library,
-    seconds)}, the main library under 1."""
+def build_libraries(build_mod, levels=LEVEL_LIBS):
+    """Phase 1: the main library and those for ``levels``, built at once
+    (each runs one nvcc per source); returns {levels: (library, seconds)},
+    the main library under 1."""
     out, errors = {}, []
 
     def build(m):
@@ -202,8 +214,7 @@ def build_libraries(build_mod):
         except Exception as e:  # re-raised below, in the main thread
             errors.append(e)
 
-    workers = [threading.Thread(target=build, args=(m,))
-               for m in (EXTRA_LEVELS, WIDE_LEVELS)]
+    workers = [threading.Thread(target=build, args=(m,)) for m in levels]
     for w in workers:
         w.start()
     build(1)
@@ -310,7 +321,8 @@ def benchmark_inputs(ut, X):
 
 
 def kernel_checks(ic, ut, X):
-    """Phase 2: every case of K1-K4 against its plain version."""
+    """Phase 2: every case of K1-K4 against its plain version, K1 and K2 in
+    both modes (all pairs; symmetric, the main path's)."""
     Z_np, ls = benchmark_inputs(ut, X)
     cases = [  # (nz, N, L, base, increments, difference)
         (N_IND, 32, L, "rbf", True, True),
@@ -332,27 +344,67 @@ def kernel_checks(ic, ut, X):
         cz64, cx64 = cz32.double(), cx32.double()
         kw = dict(num_levels=LEVELS, base=base, increments=inc)
         kwx = dict(kw, difference=diff)
-        pairs = (
-            ("kzz_fwd", ic.kzz_fwd(*zz32, **kw),
-             ic.kzz_fwd_plain(*zz32, **kw), ic.kzz_fwd_plain(*zz64, **kw)),
+        meta = dict(nz=nz, N=n, L=l, base=base, increments=inc,
+                    difference=diff)
+        pairs = [
             ("kzx_fwd", ic.kzx_fwd(*zx32, **kwx),
-             ic.kzx_fwd_plain(*zx32, **kwx), ic.kzx_fwd_plain(*zx64, **kwx)),
-            ("kzz_bwd", ic.kzz_bwd(*zz32, cz32, **kw),
-             ic.kzz_bwd_plain(*zz32, cz32, **kw),
-             ic.kzz_bwd_plain(*zz64, cz64, **kw)),
+             ic.kzx_fwd_plain(*zx32, **kwx), ic.kzx_fwd_plain(*zx64, **kwx),
+             meta),
             ("kzx_bwd", ic.kzx_bwd(*zx32, cx32, **kwx),
              ic.kzx_bwd_plain(*zx32, cx32, **kwx),
-             ic.kzx_bwd_plain(*zx64, cx64, **kwx)),
-        )
+             ic.kzx_bwd_plain(*zx64, cx64, **kwx), meta),
+        ]
         again = ic.kzx_bwd(*zx32, cx32, **kwx)
-        check(all(torch.equal(a, b) for a, b in zip(pairs[3][1], again)),
+        check(all(torch.equal(a, b) for a, b in zip(pairs[1][1], again)),
               f"kzx_bwd {nz, n, l, base, inc, diff}: two launches differ")
+        for sym in (False, True):
+            kws = dict(kw, symmetric=sym)
+            out = ic.kzz_fwd(*zz32, **kws)
+            grads = ic.kzz_bwd(*zz32, cz32, **kws)
+            again = ic.kzz_bwd(*zz32, cz32, **kws)
+            check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                  f"kzz_bwd {nz, base, inc, sym}: two launches differ")
+            if sym:
+                check(torch.equal(out, out.transpose(1, 2)),
+                      f"kzz_fwd {nz, base, inc}: not exactly symmetric")
+            m = dict(meta, symmetric=sym)
+            pairs += [("kzz_fwd", out, ic.kzz_fwd_plain(*zz32, **kws),
+                       ic.kzz_fwd_plain(*zz64, **kws), m),
+                      ("kzz_bwd", grads, ic.kzz_bwd_plain(*zz32, cz32, **kws),
+                       ic.kzz_bwd_plain(*zz64, cz64, **kws), m)]
         torch.cuda.synchronize()
         for pair in pairs:
-            rows.append(check_against_plain(
-                *pair, dict(nz=nz, N=n, L=l, base=base, increments=inc,
-                            difference=diff)))
+            rows.append(check_against_plain(*pair))
     return rows
+
+
+def fused_kzz_check(T, ic, ut, X) -> dict:
+    """Phase 2g: ``fused_tensor_levels`` on the card at the benchmark width,
+    forward and backward through autograd, launches K1 and K2 once each in
+    symmetric mode: an exactly symmetric output, bit-equal to
+    ``kzz_fwd(symmetric=True)`` on the same rows."""
+    Z_np, ls = benchmark_inputs(ut, X)
+    Z = (torch.as_tensor(Z_np, device="cuda")
+         / torch.as_tensor(ls, device="cuda")).float().requires_grad_()
+    ct = cotangents(N_IND, 1, torch.float32)[0]
+    reset_counts()
+    out = ic.fused_tensor_levels(Z, num_levels=LEVELS)
+    (g,) = torch.autograd.grad(out, Z, ct)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    rows = (*ic._prep_tensors(Z.detach(), "rbf", True, lhs=True),
+            *ic._prep_tensors(Z.detach(), "rbf", True, lhs=False))
+    direct = ic.kzz_fwd(*rows, num_levels=LEVELS, base="rbf",
+                        increments=True, symmetric=True)
+    print(f"  fused_tensor_levels: launches {launches}")
+    check(launches["kzz_fwd"] == 1 and launches["kzz_bwd"] == 1,
+          f"fused_tensor_levels did not launch K1 and K2 once: {launches}")
+    check(torch.equal(out, out.transpose(1, 2)),
+          "fused_tensor_levels: not exactly symmetric")
+    check(torch.equal(out.detach(), direct),
+          "fused_tensor_levels differs from kzz_fwd(symmetric=True)")
+    check(bool(torch.isfinite(g).all()), "fused_tensor_levels: gradient")
+    return dict(launches=launches, symmetric=True)
 
 
 def check_against_plain(name, out, p32, p64, meta) -> dict:
@@ -513,12 +565,13 @@ def many_examples_checks(ic, ut, X):
                                 _sliced(bwd, zx64, ct64, MANY), meta)]
 
 
-def extra_levels_setup(ic, sc, m=EXTRA_LEVELS):
-    """Inputs at m levels and a small width, and for each of K1-K6 a
-    ``call(fn, dtype)`` of its kernel or plain version on them."""
+def extra_levels_setup(ic, sc, m=EXTRA_LEVELS, d=D):
+    """Inputs at m levels and a small width (d features), and for each of
+    K1-K6 a ``call(fn, dtype)`` of its kernel or plain version on them; K1
+    and K2 in symmetric mode, the main path's."""
     lt, nz, n = m * (m + 1) // 2, 37, 3
     rng = np.random.RandomState(SEED + 11)
-    Z = rng.randn(lt, nz, 2, D) * 0.3
+    Z = rng.randn(lt, nz, 2, d) * 0.3 * np.sqrt(D / d)
     Xs = rng.randn(n, 18, D) / 4
     A, B = rng.randn(7, 11, D) / 4, rng.randn(5, 40, D) / 4
     ctz, ctx, cts = (rng.randn(m + 1, nz, nz), rng.randn(m + 1, nz, n),
@@ -534,11 +587,12 @@ def extra_levels_setup(ic, sc, m=EXTRA_LEVELS):
         ss = (*ic._prep_seq(At, "rbf", lhs=True), *ic._prep_seq(Bt, "rbf"))
         ins[dtype] = (zz, zx, ss, cz, cx, cs)
     kw = dict(num_levels=m, base="rbf", increments=True)
+    kwz = dict(kw, symmetric=True)
     kwx = dict(kw, difference=True)
     kws = dict(num_levels=m, base="rbf", difference=True)
     # (kernel, its rows in ins, its cotangent in ins, options)
-    specs = (("kzz_fwd", 0, None, kw), ("kzx_fwd", 1, None, kwx),
-             ("kzz_bwd", 0, 3, kw), ("kzx_bwd", 1, 4, kwx),
+    specs = (("kzz_fwd", 0, None, kwz), ("kzx_fwd", 1, None, kwx),
+             ("kzz_bwd", 0, 3, kwz), ("kzx_bwd", 1, 4, kwx),
              ("seq_fwd", 2, None, kws), ("seq_bwd", 2, 5, kws))
     calls = {}
     for name, at, ct_at, opts in specs:
@@ -556,26 +610,37 @@ def _plain(name: str):
 
 
 def extra_levels_checks(ic, sc):
-    """Phase 2d: K1-K6 at 9 and 10 levels (the libraries built for those
-    level counts) at a small width, against their plain versions."""
+    """Phase 2d: K1-K6 at 9, 10 and 17 levels (the libraries built for
+    those level counts) at a small width, and K2 at 17 levels and d2 = 42,
+    against their plain versions."""
+    cases = [(m, D, None) for m in LEVEL_LIBS]
+    cases.append((MANY_LEVELS, WIDE_K2_D, "kzz_bwd"))
     rows = []
-    for m in (EXTRA_LEVELS, WIDE_LEVELS):
-        for name, call in extra_levels_setup(ic, sc, m).items():
+    for m, d, only in cases:
+        for name, call in extra_levels_setup(ic, sc, m, d).items():
+            if only not in (None, name):
+                continue
             out = call(_wrapper(name), torch.float32)
             torch.cuda.synchronize()
             rows.append(check_against_plain(
                 name, out, call(_plain(name), torch.float32),
-                call(_plain(name), torch.float64), dict(levels=m)))
+                call(_plain(name), torch.float64), dict(levels=m, d2=d + 2)))
     return rows
 
 
 def expm1_checks(sc) -> dict:
-    """Phase 2e: common.cuh's expm1_acc (K3's and K5's expm1) and CUDA's
-    expm1f against float64 expm1 on a dense grid of [-1, 1], at the switch
-    at +-0.41 and near 0, in float32 ulp of the true value; and the rbf slot
-    Gram exp(a) (expm1(d01 + d10 + dxx) - expm1(d01) - expm1(d10)), whose
-    terms cancel, with each, in float32 epsilons of the sum of its terms'
-    magnitudes.  Bounds: 5 ulp, 16 epsilons."""
+    """Phase 2e: common.cuh's expm1_acc (the expm1 of K1, K2, K3 and K5) and
+    CUDA's expm1f against float64 expm1 on a dense grid of [-1, 1], at the
+    switch at +-0.41 and near 0, in float32 ulp of the true value; and the
+    rbf slot Gram exp(a) (expm1(d01 + d10 + dxx) - expm1(d01) -
+    expm1(d10)), whose terms cancel, with each, in float32 epsilons of the
+    sum of its terms' magnitudes; and its partials exp(a) (expm1(s) -
+    expm1(d01)), exp(a) (expm1(s) - expm1(d10)), exp(a) (expm1(s) + 1)
+    (K2's weights; s = d01 + d10 + dxx) likewise, where the terms of s
+    count too, as exp(s) (|d01| + |d10| + |dxx|): s is summed in float32,
+    and where its terms cancel and expm1(d01) or expm1(d10) is not there
+    to cover it (as it is in the slot Gram) that rounding, not the expm1,
+    sets the error.  Bounds: 5 ulp, 16 epsilons."""
     x = np.concatenate([np.linspace(-1, 1, 1 << 22),
                         0.41 + np.linspace(-1e-3, 1e-3, 1 << 16),
                         -0.41 + np.linspace(-1e-3, 1e-3, 1 << 16),
@@ -592,25 +657,43 @@ def expm1_checks(sc) -> dict:
     want = np.expm1(x.astype(np.float64))
     ulp = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
     a, d01, d10, dxx = combo.astype(np.float64).T
-    terms = [np.expm1(d01 + d10 + dxx), np.expm1(d01), np.expm1(d10)]
-    g = np.exp(a) * (terms[0] - terms[1] - terms[2])
-    unit = np.exp(a) * sum(np.abs(t) for t in terms) * 2.0 ** -23
+    es, e01, e10 = np.expm1(d01 + d10 + dxx), np.expm1(d01), np.expm1(d10)
+    ea, eps = np.exp(a), 2.0 ** -23
+    g = ea * (es - e01 - e10)
+    unit = ea * (np.abs(es) + np.abs(e01) + np.abs(e10)) * eps
+    # the partials with expm1_acc (columns 4-6), the first with expm1f (7)
+    sum_terms = np.exp(d01 + d10 + dxx) * (np.abs(d01) + np.abs(d10)
+                                           + np.abs(dxx))
+    parts = [(ea * (es - e01), ea * (np.abs(es) + np.abs(e01) + sum_terms)),
+             (ea * (es - e10), ea * (np.abs(es) + np.abs(e10) + sum_terms)),
+             (ea * (es + 1.0), ea * (np.abs(es) + 1.0 + sum_terms))]
+    parts = [(p, u * eps) for p, u in parts]
+    c = out[len(x):]
     res = dict(points=len(x), combos=k,
                expm1_acc_max_ulp=float(np.max(np.abs(out[:len(x), 0] - want)
                                               / ulp)),
                expm1f_max_ulp=float(np.max(np.abs(out[:len(x), 1] - want)
                                            / ulp)),
-               slot_gram_acc_max_eps=float(np.max(np.abs(out[len(x):, 2] - g)
+               slot_gram_acc_max_eps=float(np.max(np.abs(c[:, 2] - g)
                                                   / unit)),
-               slot_gram_expm1f_max_eps=float(np.max(
-                   np.abs(out[len(x):, 3] - g) / unit)))
+               slot_gram_expm1f_max_eps=float(np.max(np.abs(c[:, 3] - g)
+                                                     / unit)),
+               partials_acc_max_eps=[float(np.max(np.abs(c[:, 4 + i] - p) / u))
+                                     for i, (p, u) in enumerate(parts)],
+               partial_expm1f_max_eps=float(np.max(
+                   np.abs(c[:, 7] - parts[0][0]) / parts[0][1])))
     print(f"  expm1 on {len(x)} points: expm1_acc {res['expm1_acc_max_ulp']:.2f}"
           f" ulp, expm1f {res['expm1f_max_ulp']:.2f} ulp at most; slot Gram "
           f"on {k} cancelling rows: {res['slot_gram_acc_max_eps']:.2f} eps "
           f"with expm1_acc, {res['slot_gram_expm1f_max_eps']:.2f} with "
-          "expm1f, at most")
+          "expm1f, at most; its partials (K2's weights) "
+          + " / ".join(f"{e:.2f}" for e in res["partials_acc_max_eps"])
+          + f" eps with expm1_acc, the first {res['partial_expm1f_max_eps']:.2f}"
+          " with expm1f")
     check(res["expm1_acc_max_ulp"] <= 5, f"expm1_acc past 5 ulp: {res}")
     check(res["slot_gram_acc_max_eps"] <= 16, f"slot Gram past 16 eps: {res}")
+    check(max(res["partials_acc_max_eps"]) <= 16,
+          f"slot Gram partials past 16 eps: {res}")
     return res
 
 
@@ -626,10 +709,9 @@ def _walks(rng, n, l, d, v):
 def wide_checks(ic, sc):
     """Phase 2f: PEMS's 963 features.  K5 and K6 on the Kzz of 500
     inducing sequences of length 5 and their Kzx against 50 examples of
-    144 steps (inner rows past shared memory, read through L1); K1, K3, K4
-    on 500 inducing tensors against 16 of the examples; each against its
-    plain version.  K2 keeps a level's rows in shared memory and must raise
-    a clear NotImplementedError at this width."""
+    144 steps (inner rows past shared memory, read through L1); K1-K4 on
+    500 inducing tensors against 16 of the examples (K1 and K2 in
+    symmetric mode, the main path's); each against its plain version."""
     rng = np.random.RandomState(SEED + 13)
     v = rng.randn(PEMS_D) / np.sqrt(PEMS_D)
     Z = _walks(rng, N_IND, LEN_IND, PEMS_D, v)
@@ -667,8 +749,10 @@ def wide_checks(ic, sc):
     kwx = dict(kw, difference=True)
     m = dict(meta, nz=N_IND, N=16, L=PEMS_L + 1)
     rows.append(check_against_plain(
-        "kzz_fwd", ic.kzz_fwd(*zz32, **kw), ic.kzz_fwd_plain(*zz32, **kw),
-        ic.kzz_fwd_plain(*zz64, **kw), m))
+        "kzz_fwd", ic.kzz_fwd(*zz32, symmetric=True, **kw),
+        ic.kzz_fwd_plain(*zz32, symmetric=True, **kw),
+        ic.kzz_fwd_plain(*zz64, symmetric=True, **kw),
+        dict(m, symmetric=True)))
     rows.append(check_against_plain(
         "kzx_fwd", ic.kzx_fwd(*zx32, **kwx), ic.kzx_fwd_plain(*zx32, **kwx),
         ic.kzx_fwd_plain(*zx64, **kwx), m))
@@ -676,34 +760,33 @@ def wide_checks(ic, sc):
         "kzx_bwd", ic.kzx_bwd(*zx32, cx64.float(), **kwx),
         ic.kzx_bwd_plain(*zx32, cx64.float(), **kwx),
         ic.kzx_bwd_plain(*zx64, cx64, **kwx), m))
-    cz = torch.zeros((LEVELS + 1, N_IND, N_IND), device="cuda")
-    try:
-        ic.kzz_bwd(*zz32, cz, **kw)
-        raised = False
-    except NotImplementedError as e:
-        raised = True
-        print(f"  kzz_bwd at d={PEMS_D}: raises, as documented: {e}")
-    check(raised, f"kzz_bwd at d={PEMS_D} did not raise")
+    cz64 = torch.as_tensor(rng.randn(LEVELS + 1, N_IND, N_IND), device="cuda")
+    kwz = dict(kw, symmetric=True)
+    rows.append(check_against_plain(
+        "kzz_bwd", ic.kzz_bwd(*zz32, cz64.float(), **kwz),
+        ic.kzz_bwd_plain(*zz32, cz64.float(), **kwz),
+        ic.kzz_bwd_plain(*zz64, cz64, **kwz), dict(m, symmetric=True)))
     return rows
 
 
 def time_extra_levels(ic, sc):
-    """Phase 4d: K1-K6 at 9 levels, once, at the phase-2d shapes, against
-    their plain versions, interleaved."""
+    """Phase 4d: K1-K6 at 9 and 17 levels, once, at the phase-2d shapes,
+    against their plain versions, interleaved."""
     rows = []
-    for name, call in extra_levels_setup(ic, sc).items():
-        def kern():
-            return call(_wrapper(name), torch.float32)
+    for m in (EXTRA_LEVELS, MANY_LEVELS):
+        for name, call in extra_levels_setup(ic, sc, m).items():
+            def kern():
+                return call(_wrapper(name), torch.float32)
 
-        def plain():
-            return call(_plain(name), torch.float32)
+            def plain():
+                return call(_plain(name), torch.float32)
 
-        p1, k1, k2, p2 = (time_cuda(plain, reps=5), time_cuda(kern),
-                          time_cuda(kern), time_cuda(plain, reps=5))
-        rows.append(dict(kernel=name, levels=EXTRA_LEVELS, ms=[k1, k2],
-                         plain_ms=[p1, p2]))
-        print(f"  {name} ({EXTRA_LEVELS} levels): kernel {k1:.4f} / "
-              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
+            p1, k1, k2, p2 = (time_cuda(plain, reps=5), time_cuda(kern),
+                              time_cuda(kern), time_cuda(plain, reps=5))
+            rows.append(dict(kernel=name, levels=m, ms=[k1, k2],
+                             plain_ms=[p1, p2]))
+            print(f"  {name} ({m} levels): kernel {k1:.4f} / {k2:.4f} ms, "
+                  f"plain {p1:.4f} / {p2:.4f} ms")
     return rows
 
 
@@ -859,19 +942,22 @@ def time_cuda(fn, reps=20, warm=3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(name: str, nz: int, n: int, l: int) -> tuple[float, str]:
+def bound_ms(name: str, nz: int, n: int, l: int,
+             symmetric: bool = False) -> tuple[float, str]:
     """Least time the card could take for a kernel's work at this shape:
     FMAs (2 operations each) at the f32 peak against each input read and
     each output written once at the memory rate.  Slot dots: 4 of width
     d2 per slot Gram; each backward adds two d2-wide terms to each of its
-    four gradients."""
+    four gradients.  Kzz counts each unordered pair once when
+    ``symmetric``, as ``seq_bound_ms`` does."""
     T_steps = l - 1  # the difference sweep of the benchmark configuration
     lvl = LEVELS + 1
+    pairs = nz * (nz + 1) // 2 if symmetric else nz * nz
     if name == "kzz_fwd":
-        fma = 4 * LT * nz * nz * D2
+        fma = 4 * LT * pairs * D2
         nbytes = 4 * (4 * LT * nz * D2 + lvl * nz * nz)
     elif name == "kzz_bwd":
-        fma = 12 * LT * nz * nz * D2
+        fma = 12 * LT * pairs * D2
         nbytes = 4 * (8 * LT * nz * D2 + lvl * nz * nz)
     elif name == "kzx_fwd":
         fma = 4 * LT * nz * n * T_steps * D2
@@ -979,18 +1065,28 @@ def time_graph(fn, reps=20) -> float:
 
 
 def time_kernels(ic, ut, X):
-    """Phase 4a: kernel vs plain at the benchmark shapes, interleaved; K3
-    at the serving batches also from a CUDA graph (the launch alone)."""
+    """Phase 4a: kernel vs plain at the benchmark shapes, interleaved; K1
+    and K2 in both modes (symmetric is the main path's), each with both
+    bounds; K1, K2 and K3 at the serving batches also from a CUDA graph
+    (the launch alone).  A checkout whose K1 and K2 lack the symmetric mode
+    times their all-pairs rows only."""
     Z_np, ls = benchmark_inputs(ut, X)
+    modes = ((False, True) if "symmetric" in inspect.signature(
+        ic.kzz_fwd).parameters else (False,))
     rows = []
-    for name, n in (("kzz_fwd", BATCH), ("kzx_fwd", 1), ("kzx_fwd", 8),
-                    ("kzx_fwd", 32), ("kzx_fwd", BATCH), ("kzz_bwd", BATCH),
-                    ("kzx_bwd", BATCH)):
+    for name, n, sym in (
+            [("kzz_fwd", BATCH, s) for s in modes]
+            + [("kzx_fwd", 1, False), ("kzx_fwd", 8, False),
+               ("kzx_fwd", 32, False), ("kzx_fwd", BATCH, False)]
+            + [("kzz_bwd", BATCH, s) for s in modes]
+            + [("kzx_bwd", BATCH, False)]):
         zz, zx = kernel_inputs(ic, X, Z_np, ls, N_IND, n, L, base="rbf",
                                inc=True, dtype=torch.float32)
         cz, cx = cotangents(N_IND, n, torch.float32)
         kw = dict(num_levels=LEVELS, base="rbf", increments=True)
         kwx = dict(kw, difference=True)
+        if sym:
+            kw["symmetric"] = True
         kern, plain = {
             "kzz_fwd": (lambda: ic.kzz_fwd(*zz, **kw),
                         lambda: ic.kzz_fwd_plain(*zz, **kw)),
@@ -1003,16 +1099,20 @@ def time_kernels(ic, ut, X):
         }[name]
         p1, k1, k2, p2 = (time_cuda(plain), time_cuda(kern),
                           time_cuda(kern), time_cuda(plain))
-        b_ms, b_by = bound_ms(name, N_IND, n, L)
-        rows.append(dict(kernel=name, N=n, ms=[k1, k2], plain_ms=[p1, p2],
-                         bound_ms=b_ms, bound_by=b_by))
-        graph = ""
-        if name == "kzx_fwd" and n < 32:
+        b_ms, b_by = bound_ms(name, N_IND, n, L, symmetric=sym)
+        rows.append(dict(kernel=name, N=n, symmetric=sym, ms=[k1, k2],
+                         plain_ms=[p1, p2], bound_ms=b_ms, bound_by=b_by))
+        extra = ""
+        if name.startswith("kzz"):
+            all_ms, _ = bound_ms(name, N_IND, n, L)
+            rows[-1]["bound_all_pairs_ms"] = all_ms
+            extra = f", all-pairs bound {all_ms:.4f} ms"
+        if name.startswith("kzz") or n < 32:
             rows[-1]["graph_ms"] = time_graph(kern)
-            graph = f", launch alone {rows[-1]['graph_ms']:.4f} ms"
-        print(f"  {name} (nZ={N_IND}, N={n}, L={L}): kernel {k1:.4f} / "
-              f"{k2:.4f} ms{graph}, plain {p1:.4f} / {p2:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})")
+            extra += f", launch alone {rows[-1]['graph_ms']:.4f} ms"
+        print(f"  {name} (nZ={N_IND}, N={n}, L={L}, symmetric={sym}): kernel "
+              f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}){extra}")
     return rows
 
 
@@ -1153,23 +1253,32 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     print(card)
+    if "--kernel-times" in sys.argv[1:]:
+        # phase 1 (the main library) and phase 4a alone: a quick comparison
+        # of two checkouts, each run with its own copy of this script
+        (lib, build_s), = build_libraries(_cuda_build, levels=()).values()
+        print(f"phase 1: built {lib.path.parent.name} in {build_s:.1f} s")
+        print(f"phase 4a: kernel times ({card})")
+        rows = time_kernels(ic, ut, synthetic_data()[0])
+        print(json.dumps({"card": card, "kernel_times": rows}))
+        return
     libs = build_libraries(_cuda_build)
-    (lib, build_s), (lib9, build9_s) = libs[1], libs[EXTRA_LEVELS]
-    lib10, build10_s = libs[WIDE_LEVELS]
-    ptxas = ptxas_summary(lib.ptxas_report)
-    ptxas9 = ptxas_summary(lib9.ptxas_report)
-    ptxas10 = ptxas_summary(lib10.ptxas_report)
+    lib, build_s = libs[1]
+    ptxas = {m: ptxas_summary(libs[m][0].ptxas_report) for m in libs}
     print(f"phase 1: built {lib.path.parent.name} (1-8 levels) in "
-          f"{build_s:.1f} s, {lib9.path.parent.name} ({EXTRA_LEVELS} "
-          f"levels) in {build9_s:.1f} s and {lib10.path.parent.name} "
-          f"({WIDE_LEVELS}) in {build10_s:.1f} s, at once; ptxas, K3 and K5 "
-          f"at {LEVELS} levels:")
-    print_ptxas(ptxas, lambda r: r["args"][:1] == [LEVELS] and (
-        r["kernel"].startswith("kzx_fwd") or r["kernel"] == "seq_fwd_kernel"))
+          f"{build_s:.1f} s, " + ", ".join(
+              f"{libs[m][0].path.parent.name} ({m} levels) in "
+              f"{libs[m][1]:.1f} s" for m in LEVEL_LIBS)
+          + f", at once; ptxas, K1, K2, K3 and K5 at {LEVELS} levels:")
+    print_ptxas(ptxas[1], lambda r: r["args"][:1] == [LEVELS] and (
+        r["kernel"].startswith(("kzz", "kzx_fwd"))
+        or r["kernel"] == "seq_fwd_kernel"))
     print(f"  every kernel at {EXTRA_LEVELS} levels:")
-    print_ptxas(ptxas9, lambda r: True)
+    print_ptxas(ptxas[EXTRA_LEVELS], lambda r: True)
     print(f"  K3 at {WIDE_LEVELS} levels:")
-    print_ptxas(ptxas10, lambda r: r["kernel"].startswith("kzx_fwd"))
+    print_ptxas(ptxas[WIDE_LEVELS], lambda r: r["kernel"].startswith("kzx_fwd"))
+    print(f"  every kernel at {MANY_LEVELS} levels:")
+    print_ptxas(ptxas[MANY_LEVELS], lambda r: True)
 
     print("set-up: benchmark-width models from the seed")
     X, y = synthetic_data()
@@ -1182,6 +1291,7 @@ def main() -> None:
               + many_examples_checks(ic, ut, X) + extra_levels_checks(ic, sc))
     expm1 = expm1_checks(sc)
     checks += wide_checks(ic, sc)
+    fused_kzz = fused_kzz_check(T, ic, ut, X)
     print("phase 3: serving, inducing tensors")
     pred, serve_launches, requests = drive_serving(
         T, model, ref, X, ("kzz_fwd", "kzx_fwd"))
@@ -1215,9 +1325,10 @@ def main() -> None:
                      and r.get("N2") == BATCH and r["N1"] == N_IND
                      and r["L2"] == L)
             launches = s_train_launches[name]
-        else:
+        else:  # K1 and K2 in the main path's symmetric mode
             t = next(r for r in ktimes if r["kernel"] == name
-                     and r.get("N") == BATCH)
+                     and r.get("N") == BATCH
+                     and r.get("symmetric") == name.startswith("kzz"))
             launches = train_launches[name]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
@@ -1228,12 +1339,12 @@ def main() -> None:
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None))
     details = dict(card=card, torch=torch.__version__,
                    cuda=torch.version.cuda, build_s=build_s,
-                   build_extra_levels_s=build9_s,
-                   build_wide_levels_s=build10_s, ptxas=lib.ptxas_report,
-                   ptxas_extra_levels=lib9.ptxas_report,
-                   ptxas_summary=ptxas, ptxas_summary_extra_levels=ptxas9,
-                   ptxas_summary_wide_levels=ptxas10, kernel_checks=checks,
-                   expm1=expm1,
+                   build_levels_s={m: libs[m][1] for m in LEVEL_LIBS},
+                   ptxas=lib.ptxas_report,
+                   ptxas_levels={m: libs[m][0].ptxas_report
+                                 for m in LEVEL_LIBS},
+                   ptxas_summary=ptxas, kernel_checks=checks,
+                   expm1=expm1, fused_kzz=fused_kzz,
                    serving_launches=serve_launches, requests=requests,
                    full_cov=full_cov, gradient_check=grads,
                    training_launches=train_launches, training=train,

@@ -2,13 +2,14 @@
 // slot-Gram algebra of gpsig_tpu/ops/inducing_pallas.py (_slot_gram_zz :153,
 // _slot_gram_zz_bwd :175, _slot_gram_zx :554, _slot_gram_zx_bwd :604) on
 // norm-augmented value/difference vectors, for kzz_fwd.cu, kzz_bwd.cu,
-// kzx_fwd.cu and kzx_bwd.cu; the group scans of the seq x seq backward
-// seq_bwd.cu; and the level switch every launcher ends in.
+// kzx_fwd.cu and kzx_bwd.cu; the Kzz tiles K1 and K2 share; the group
+// scans of the seq x seq backward seq_bwd.cu; and the level switch every
+// launcher ends in.
 //
 // Transcendentals: CUDA's accurate expf (max 2 ulp) and expm1f (max 1
 // ulp), never the __expf intrinsic -- the library is built without
-// --use_fast_math; K3 and K5 call the shorter expm1_acc below (max 4.5
-// ulp; chip_smoke.py phase 2e measures it) in place of expm1f.  This is a
+// --use_fast_math; K1, K2, K3 and K5 call the shorter expm1_acc below
+// (max 4.5 ulp; chip_smoke.py phase 2e measures it) in place of expm1f.  This is a
 // deliberate divergence from the TPU kernels, which carry their own exp
 // (gram.exp_accurate) and a Taylor branch for expm1
 // (signature_pallas._expm1) because Mosaic's native f32 exp is only ~4e-6
@@ -40,7 +41,8 @@ __device__ __forceinline__ float expm1_acc(float x) {
   return fabsf(x) < 0.41f ? p : e;
 }
 
-// expm1 of the slot Grams: CUDA's expm1f, or (SHORT: K3, K5) expm1_acc.
+// expm1 of the slot Grams: CUDA's expm1f, or (SHORT: K1, K2, K3, K5)
+// expm1_acc.
 template <bool SHORT>
 __device__ __forceinline__ float slot_expm1(float x) {
   return SHORT ? expm1_acc(x) : expm1f(x);
@@ -103,7 +105,8 @@ __device__ __forceinline__ float slot_gram_zx(float a0, float dza, float da0,
 // the backward weights of _slot_gram_zz_bwd are the slot cotangent times p
 // (W_A00, W_d01, W_d10, W_dxx), and so are those of the seq x seq backward
 // with Mbar in place of the slot cotangent (signature_pallas.py:1021-1034).
-// Returns G.
+// SHORT (K2): expm1_acc.  Returns G.
+template <bool SHORT = false>
 __device__ __forceinline__ float slot_gram_zz_partials(float a00, float d01,
                                                        float d10, float dxx,
                                                        int base,
@@ -121,8 +124,8 @@ __device__ __forceinline__ float slot_gram_zz_partials(float a00, float d01,
     p[0] = ea;
     return ea;
   }
-  const float es = expm1f(d01 + d10 + dxx);
-  const float e01 = expm1f(d01), e10 = expm1f(d10);
+  const float es = slot_expm1<SHORT>(d01 + d10 + dxx);
+  const float e01 = slot_expm1<SHORT>(d01), e10 = slot_expm1<SHORT>(d10);
   const float g = ea * (es - e01 - e10);
   p[0] = g;
   p[1] = ea * (es - e01);
@@ -175,6 +178,115 @@ __device__ __forceinline__ float slot_gram_zx_partials(float a0, float dza,
   }
   p[0] = ea;
   return ea;
+}
+
+// ---------------------------------------------------------------------------
+// Kzz tiles (kzz_fwd.cu, kzz_bwd.cu)
+// ---------------------------------------------------------------------------
+
+// K1 and K2 take the (i, j) pairs of Kzz in tiles of kZzTile x kZzTile, a
+// block of kZzThreads threads, thread (ty, tx) = (t / 16, t % 16) owning the
+// 2 x 2 pairs (ty + 16 a, tx + 16 b).  A slot's four row arrays -- lhs vl,
+// dl of the tile's rows, rhs vr, dr of its columns -- are staged kZzCB
+// channels at a time, each row padded to kZzPad floats so that the float4
+// reads of 8 lanes on 8 different rows hit distinct banks.
+constexpr int kZzTile = 32;
+constexpr int kZzThreads = 256;
+constexpr int kZzCB = 16;
+constexpr int kZzPad = 20;
+
+struct __align__(16) ZzRows {
+  float r[4][kZzTile][kZzPad];  // vl, dl (tile rows), vr, dr (tile columns)
+};
+
+// Stage channels cb kZzCB .. of slot k's lhs rows i0 .. and rhs rows j0 ..
+// of (lt, nz, d2) arrays; rows past nz and channels past d2 stage as 0.
+// Rows of a multiple of 4 channels come in as float4s, 2 a thread.
+__device__ __forceinline__ void zz_stage(ZzRows& s, const float* vl,
+                                         const float* dl, const float* vr,
+                                         const float* dr, int k, int i0,
+                                         int j0, int cb, int nz, int d2) {
+  if (d2 % 4 == 0) {
+    static_assert(4 * kZzTile * kZzCB / 4 == 2 * kZzThreads, "2 a thread");
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      const int e = it * kZzThreads + threadIdx.x;
+      const int a = e / (kZzTile * kZzCB / 4);
+      const int r = (e / (kZzCB / 4)) % kZzTile, c4 = e % (kZzCB / 4);
+      const int row = (a < 2 ? i0 : j0) + r, ch = cb * kZzCB + 4 * c4;
+      const float* src = a == 0 ? vl : a == 1 ? dl : a == 2 ? vr : dr;
+      reinterpret_cast<float4*>(s.r[a][r])[c4] =
+          row < nz && ch < d2
+              ? *reinterpret_cast<const float4*>(
+                    src + (static_cast<size_t>(k) * nz + row) * d2 + ch)
+              : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+  constexpr int kPer = kZzTile * kZzCB / kZzThreads;  // passes an array
+#pragma unroll
+  for (int it = 0; it < 4 * kPer; ++it) {
+    const int a = it / kPer;
+    const int e = (it % kPer) * kZzThreads + threadIdx.x;
+    const int r = e / kZzCB, c = e % kZzCB;
+    const int row = (a < 2 ? i0 : j0) + r, ch = cb * kZzCB + c;
+    const float* src = a == 0 ? vl : a == 1 ? dl : a == 2 ? vr : dr;
+    s.r[a][r][c] =
+        row < nz && ch < d2
+            ? src[(static_cast<size_t>(k) * nz + row) * d2 + ch]
+            : 0.f;
+  }
+}
+
+__device__ __forceinline__ float dot4(const float4 a, const float4 b,
+                                      float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// The four slot dots of the thread's 2 x 2 pairs over the staged channels,
+// added to acc[2 a + b] = (a00, d01, d10, dxx): a00 = <vl_i, vr_j>, d01 =
+// <vl_i, dr_j>, d10 = <dl_i, vr_j>, dxx = <dl_i, dr_j>.  8 float4 loads
+// (the lhs ones broadcast) for 64 FMAs.
+__device__ __forceinline__ void zz_dots(const ZzRows& s,
+                                        float (&acc)[4][4]) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int c4 = 0; c4 < kZzCB / 4; ++c4) {
+    float4 lv[2], ld[2], rv[2], rd[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lv[h] = reinterpret_cast<const float4*>(s.r[0][ty + 16 * h])[c4];
+      ld[h] = reinterpret_cast<const float4*>(s.r[1][ty + 16 * h])[c4];
+      rv[h] = reinterpret_cast<const float4*>(s.r[2][tx + 16 * h])[c4];
+      rd[h] = reinterpret_cast<const float4*>(s.r[3][tx + 16 * h])[c4];
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        float* q = acc[2 * a + b];
+        q[0] = dot4(lv[a], rv[b], q[0]);
+        q[1] = dot4(lv[a], rd[b], q[1]);
+        q[2] = dot4(ld[a], rv[b], q[2]);
+        q[3] = dot4(ld[a], rd[b], q[3]);
+      }
+  }
+}
+
+// Pair p, row-major, of the upper triangle (a <= b) of an n x n grid.
+__device__ __forceinline__ void upper_pair(long long p, int n, int& a,
+                                           int& b) {
+  auto start = [n](long long r) { return r * n - r * (r - 1) / 2; };
+  const double h = 2.0 * n + 1.0;
+  long long r = static_cast<long long>((h - sqrt(h * h - 8.0 * p)) / 2.0);
+  r = r < 0 ? 0 : (r > n - 1 ? n - 1 : r);
+  while (r > 0 && start(r) > p) --r;
+  while (r + 1 < n && start(r + 1) <= p) ++r;
+  a = static_cast<int>(r);
+  b = static_cast<int>(r + (p - start(r)));
 }
 
 // ---------------------------------------------------------------------------

@@ -40,7 +40,12 @@
 //     ~35 FMAs a range at M = 4 -- no warp waits on a serial recursion.
 //     The ranges' states pass through shared memory 8 at a time, or 4, 2,
 //     1 where 8 do not fit (M >= 10: 220 sums a lane); the block's state
-//     must fit beside one, so K3 takes at most 16 levels (816 sums).
+//     must fit beside one, which it does up to 16 levels (816 sums).
+//   * Past that (or where a step's rows are too wide beside the states)
+//     the serial path: one warp a block walks the steps in order with
+//     each level's prefix chain sums, lt floats a lane, in shared memory,
+//     and reads the rows through L1 -- slow, but any level count that
+//     leaves lt floats a lane room in shared memory (up to 59 levels).
 //   * The block index folds (example, tensor tile) into grid x (2^31 -
 //     1), so any number of examples takes one launch.
 //   At serving batches (N = 1, 8) the grid is 16 and 128 blocks on 132 SMs.
@@ -267,6 +272,82 @@ kzx_fwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
   }
 }
 
+// The serial path: a block is one warp, 32 inducing tensors (one a lane)
+// of one example, walking the steps in order.  S[k] of level m's i-th slot
+// k = m(m-1)/2 + i is the sum over t_1 < ... < t_{i+1} (up to this step)
+// of that level's first i+1 slot Grams: a step adds S[k-1] G_k(t) to S[k],
+// i running down so that S[k-1] is still the sum over earlier steps.
+template <int M>
+__global__ void __launch_bounds__(kZ)
+kzx_fwd_serial_kernel(const float* __restrict__ vl,
+                      const float* __restrict__ dl,
+                      const float* __restrict__ xv,
+                      const float* __restrict__ xd, float* __restrict__ out,
+                      int nz, int n_ex, int L, int d2, int base,
+                      int increments, int difference) {
+  constexpr int LT = ZxShape<M>::LT;
+  extern __shared__ float4 smem4[];
+  float* s_s = reinterpret_cast<float*>(smem4);  // [LT][kZ]
+  const int lane = threadIdx.x;
+  const int n_zt = (nz + kZ - 1) / kZ;
+  const int n = blockIdx.x / n_zt, z = (blockIdx.x % n_zt) * kZ + lane;
+  const int zc = z < nz ? z : nz - 1;
+  const bool inc = increments != 0, diff = difference != 0;
+  const int T = diff ? L - 1 : L;
+  const float* xv_n = xv + static_cast<size_t>(n) * L * d2;
+  const float* xd_n = xd + static_cast<size_t>(n) * L * d2;
+  for (int k = 0; k < LT; ++k) s_s[k * kZ + lane] = 0.f;
+  for (int t = 0; t < T; ++t) {
+    const float* x = xv_n + static_cast<size_t>(t) * d2;
+    const float* dx = xd_n + static_cast<size_t>(t) * d2;
+    for (int m = 1; m <= M; ++m) {
+      for (int i = m - 1; i >= 0; --i) {
+        const int k = m * (m - 1) / 2 + i;
+        const float* v = vl + (static_cast<size_t>(k) * nz + zc) * d2;
+        const float* dv = dl + (static_cast<size_t>(k) * nz + zc) * d2;
+        float a0 = 0.f, dza = 0.f, da0 = 0.f, dda = 0.f;
+        for (int c = 0; c < d2; ++c) {
+          a0 = fmaf(v[c], x[c], a0);
+          dza = fmaf(dv[c], x[c], dza);
+          da0 = fmaf(v[c], dx[c], da0);
+          dda = fmaf(dv[c], dx[c], dda);
+        }
+        const float g =
+            slot_gram_zx<true>(a0, dza, da0, dda, base, inc, diff);
+        const float prev = i > 0 ? s_s[(k - 1) * kZ + lane] : 1.f;
+        s_s[k * kZ + lane] = fmaf(prev, g, s_s[k * kZ + lane]);
+      }
+    }
+  }
+  if (z < nz) {  // level m is its last slot's sum
+    const size_t plane = static_cast<size_t>(nz) * n_ex;
+    const size_t at = static_cast<size_t>(z) * n_ex + n;
+    out[at] = 1.f;
+    for (int m = 1; m <= M; ++m)
+      out[m * plane + at] = s_s[(m * (m + 1) / 2 - 1) * kZ + lane];
+  }
+}
+
+template <int M>
+cudaError_t launch_kzx_serial(const float* vl, const float* dl,
+                              const float* xv, const float* xd, float* out,
+                              int nz, int n_ex, int L, int d2, int base,
+                              int increments, int difference,
+                              long long blocks, cudaStream_t stream) {
+  const long long smem = ZxShape<M>::LT * kZ * sizeof(float);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kzx_fwd_serial_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  kzx_fwd_serial_kernel<M><<<static_cast<unsigned>(blocks), kZ,
+                             static_cast<int>(smem), stream>>>(
+      vl, dl, xv, xd, out, nz, n_ex, L, d2, base, increments, difference);
+  return cudaGetLastError();
+}
+
 template <int M, bool STAGED, bool ONE, bool RID = false>
 cudaError_t launch_kzx_rows(const float* vl, const float* dl, const float* xv,
                             const float* xd, float* out, int nz, int n_ex,
@@ -287,10 +368,11 @@ cudaError_t launch_kzx_rows(const float* vl, const float* dl, const float* xv,
 }
 
 template <int M>
-cudaError_t launch_kzx(const float* vl, const float* dl, const float* xv,
-                       const float* xd, float* out, int nz, int n_ex, int L,
-                       int d2, int base, int increments, int difference,
-                       cudaStream_t stream) {
+cudaError_t launch_kzx_chained(const float* vl, const float* dl,
+                               const float* xv, const float* xd, float* out,
+                               int nz, int n_ex, int L, int d2, int base,
+                               int increments, int difference,
+                               long long blocks, cudaStream_t stream) {
   using S = ZxShape<M>;
   const int ncb = (d2 + kCB - 1) / kCB, xs = ncb * kCB;
   int t_chunk = kChunkBytes / (2 * xs * static_cast<int>(sizeof(float)));
@@ -309,9 +391,9 @@ cudaError_t launch_kzx(const float* vl, const float* dl, const float* xv,
   while (nr > 1 && bytes(t_chunk, nr) > kSmemMax) nr /= 2;
   while (t_chunk > 1 && bytes(t_chunk, nr) > kSmemMax) t_chunk /= 2;
   const long long smem = bytes(t_chunk, nr);
-  if (smem > kSmemMax) return cudaErrorInvalidValue;  // past 16 levels
-  const long long blocks = static_cast<long long>(n_ex) * ((nz + kZ - 1) / kZ);
-  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  if (smem > kSmemMax)  // rows too wide beside the states
+    return launch_kzx_serial<M>(vl, dl, xv, xd, out, nz, n_ex, L, d2, base,
+                                increments, difference, blocks, stream);
   const bool rid = base == kRbf && increments && difference;
 #define GPSIG_KZX_ROWS(...)                                                  \
   return launch_kzx_rows<M, __VA_ARGS__>(                                    \
@@ -322,6 +404,25 @@ cudaError_t launch_kzx(const float* vl, const float* dl, const float* xv,
   if (ncb == 1) GPSIG_KZX_ROWS(false, true);
   GPSIG_KZX_ROWS(false, false);
 #undef GPSIG_KZX_ROWS
+}
+
+template <int M>
+cudaError_t launch_kzx(const float* vl, const float* dl, const float* xv,
+                       const float* xd, float* out, int nz, int n_ex, int L,
+                       int d2, int base, int increments, int difference,
+                       cudaStream_t stream) {
+  const long long blocks = static_cast<long long>(n_ex) * ((nz + kZ - 1) / kZ);
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  // the chained path holds one range state and the block's beside a step
+  constexpr bool kChains = (2LL * ZxShape<M>::NQ * kZ + 2 * kCB) *
+                               static_cast<long long>(sizeof(float)) <=
+                           kSmemMax;
+  if constexpr (kChains)
+    return launch_kzx_chained<M>(vl, dl, xv, xd, out, nz, n_ex, L, d2, base,
+                                 increments, difference, blocks, stream);
+  else
+    return launch_kzx_serial<M>(vl, dl, xv, xd, out, nz, n_ex, L, d2, base,
+                                increments, difference, blocks, stream);
 }
 
 }  // namespace

@@ -5,203 +5,331 @@
 //
 // Level m at (i, j) is the product of its m slot Grams G_s(i, j), so slot s
 // receives Mbar_s = ct[m](i, j) * prod_{r != s} G_r(i, j) (exclusive
-// products by prefix and suffix, inducing_pallas.py:276-290), and its four
-// weights W = Mbar_s * dG_s/d(a00, d01, d10, dxx) (common.cuh) spread over
-// the rows:
+// products, inducing_pallas.py:276-290), and its four weights W = Mbar_s *
+// dG_s/d(a00, d01, d10, dxx) (common.cuh::slot_gram_zz_partials) spread
+// over the rows:
 //   g_vl[i] += W_A00 vr[j] + W_d01 dr[j]    g_dl[i] += W_d10 vr[j] + W_dxx dr[j]
 //   g_vr[j] += W_A00 vl[i] + W_d10 dl[i]    g_dr[j] += W_d01 vl[i] + W_dxx dl[i]
-// K1 computes every (i, j) pair, so the cotangent is used as it comes; the
-// TPU's mirror adjoint (inducing_pallas.py:497-501) has no counterpart.
+// Symmetric mode (K1's): the cotangent is folded onto the upper triangle
+// (ct + ct^T above the diagonal, ct on it, 0 below; inducing_cuda._fold), as
+// the TPU's mirror adjoint does (inducing_pallas.py:497-501), and only the
+// upper tile pairs are evaluated.  The kernel folds as it reads: a tile's
+// ct^T comes in coalesced through shared memory.
 //
-// What bounds it on the card: at the training shape (lt=10, nZ=500,
-// d2=16) each side recomputes 250k pairs x 10 slots x 4 dots of 16 and
-// contracts 4 weights per slot with 16-wide rows: about 0.5 G FMAs in all,
-// against ~6 MB of inputs and outputs, so FMA throughput bounds it (~0.015 ms
-// at 67 TFLOP/s).  The design: grid (row strips, shares, 2 sides).  A block
-// owns a strip of 16 rows of one side ("own") and walks a share of the
-// other side's 16-row tiles, level by level.  For each tile, each of its
-// 256 threads computes one pair's m slot Grams and weights into shared
-// memory; then the block contracts the weights with the other side's
-// staged rows into per-row accumulators in shared memory, each accumulator
-// owned by one thread.  A block writes its share as a partial slab; the
-// wrapper sums the shares (torch.sum), as XLA summed the TPU kernel's
-// slabs.  No atomics: the result is deterministic.
+// What bounds it on the card: at the training shape (lt=10, nZ=500, d2=16,
+// symmetric) 125k unordered pairs x 10 slots, each slot Gram evaluated once
+// (4 dots of 16, expf and three common.cuh::expm1_acc) and its four
+// weights contracted with 16-wide rows on both sides (8 x 16 FMAs): ~0.2 G
+// FMAs against ~6 MB of inputs and outputs, FMA and transcendental issue
+// (~0.007 ms at 67 TFLOP/s, transcendentals not counted).
+//
+// The design:
+//   * the strips of 32 rows go in `ranges` ranges of `per` strips (one
+//     strip a range up to nZ = 1,024); a block takes one range pair (the
+//     upper ones when symmetric) at one level -- at nZ=500, M=4, 136 x 4 =
+//     544 blocks of 256 threads, the highest level first; one code body
+//     for every level (run-time slot loops), so the blocks on an SM share
+//     their instructions;
+//   * for each tile pair of its ranges, each thread computes the slot
+//     Grams, partials, exclusive products and weights of its 2 x 2 pairs,
+//     once (rows staged 16 channels at a time, double-buffered so that the
+//     next slot's loads overlap this one's work, common.cuh zz_stage /
+//     zz_dots); then, slot by slot, the weights go to shared memory and the
+//     block contracts them with the staged rows of both tiles: two warps
+//     for each of g_vl, g_dl (strip I) and g_vr, g_dr (strip J), a thread
+//     2 rows x 4 channels, 6 shared loads for 16 FMAs;
+//   * shared memory is two channel blocks of rows and one slot's weights,
+//     37 KB at any width and level count;
+//   * a block writes its lhs gradients into the partial slab of its J
+//     range and its rhs gradients into that of its I range, adding over
+//     the tile pairs it walks (each thread re-reads only what it wrote);
+//     when symmetric it also writes zeros where the mirrored range pair
+//     would write, so every slab entry is written by exactly one block and
+//     the wrapper sums the slabs with torch.sum: no atomics, the result is
+//     deterministic.
 //
 // Inputs are (lt, nZ, d2) row-major float32 (inducing_cuda._prep_tensors)
-// and ct (M+1, nZ, nZ); out is (2 sides, splits, 2 [value, difference],
-// lt, nZ, d2), side 0 the lhs rows (vl, dl), side 1 the rhs rows (vr, dr).
+// and ct (M+1, nZ, nZ); out is (ranges, 2 sides, 2 [value, difference], lt,
+// nZ, d2p) -- in that order g_vl, g_dl, g_vr, g_dr -- d2p = d2 rounded up
+// to 16, side 0 the lhs rows (vl, dl), side 1 the rhs rows (vr, dr).
 #include "common.cuh"
 
 namespace gpsig {
 namespace {
 
-constexpr int kTile = 16;                 // strip / tile edge
-constexpr int kThreads = kTile * kTile;   // one thread per pair of a tile
+struct KzzBwdArgs {
+  const float* vl;
+  const float* dl;
+  const float* vr;
+  const float* dr;
+  const float* ct;
+  float* out;
+  int nz, d2, d2p, lt, base, increments, symmetric, ranges, per, strips;
+};
 
-// Shared floats a block needs at level m (the largest level sets the size).
-inline int kzz_bwd_smem_floats(int m, int d2) {
-  const int ds = d2 + 1;                  // padded row stride
-  return 4 * m * kTile * ds               // own / other value, diff rows
-         + 4 * m * kThreads               // weights
-         + 2 * m * kTile * d2;            // own-row accumulators
-}
+struct __align__(16) KzzBwdSmem {
+  ZzRows rows[2];                    // double-buffered staged rows
+  float w[4][kZzTile][kZzTile + 1];  // W_A00, W_d01, W_d10, W_dxx of a slot
+};
 
-template <int M>
-__global__ void __launch_bounds__(kThreads)
-kzz_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
-               const float* __restrict__ vr, const float* __restrict__ dr,
-               const float* __restrict__ ct, float* __restrict__ out, int nz,
-               int d2, int base, int increments, int splits,
-               int tiles_per_split) {
-  constexpr int LT = M * (M + 1) / 2;
-  extern __shared__ float smem[];
-  const int ds = d2 + 1;
-  const int tid = threadIdx.x;
-  const int a = tid / kTile, b = tid % kTile;  // own row, other row of a pair
-  const bool row_side = blockIdx.z == 0;
-  const float* own_v = row_side ? vl : vr;
-  const float* own_d = row_side ? dl : dr;
-  const float* oth_v = row_side ? vr : vl;
-  const float* oth_d = row_side ? dr : dl;
-  const int own0 = blockIdx.x * kTile;
-  const int n_tiles = (nz + kTile - 1) / kTile;
-  const int tile_begin = blockIdx.y * tiles_per_split;
-  const int tile_end = min(n_tiles, tile_begin + tiles_per_split);
-  const bool inc = increments != 0;
-  const size_t plane = static_cast<size_t>(nz) * nz;
-  const size_t slot_stride = static_cast<size_t>(nz) * d2;
-  float* out_blk = out + static_cast<size_t>(blockIdx.z * splits + blockIdx.y)
-                             * 2 * LT * slot_stride;
-
-  int k0 = 0;
+// The thread's 2 rows x 4 channels of gradient g over the staged channel
+// block: g = 0, 1 the lhs value / difference rows of the tile's rows (the
+// weights (A00, d01) / (d10, dxx) against the rhs rows vr, dr), g = 2, 3 the
+// rhs value / difference rows of its columns ((A00, d10) / (d01, dxx)
+// against vl, dl).  Row r and r + 16, channels 4q .. 4q + 3.
+__device__ __forceinline__ void kzz_contract(const KzzBwdSmem& s,
+                                             const ZzRows& rows, int g,
+                                             int r, int q,
+                                             float (&acc)[2][4]) {
+  const bool lhs = g < 2;
+  const int xa = g == 1 ? 2 : g == 3 ? 1 : 0;
+  const int xb = g == 0 ? 1 : g == 2 ? 2 : 3;
+  const float* wa = &s.w[xa][0][0];
+  const float* wb = &s.w[xb][0][0];
+  // W[i][j]: the lhs side sums over j, the rhs side over i
+  const int rs = lhs ? kZzTile + 1 : 1, ks = lhs ? 1 : kZzTile + 1;
+  const float(*xv)[kZzPad] = rows.r[lhs ? 2 : 0];
+  const float(*xd)[kZzPad] = rows.r[lhs ? 3 : 1];
 #pragma unroll
-  for (int m = 1; m <= M; ++m) {  // level m owns slots k0 .. k0 + m - 1
-    float* s_own_v = smem;
-    float* s_own_d = s_own_v + m * kTile * ds;
-    float* s_oth_v = s_own_d + m * kTile * ds;
-    float* s_oth_d = s_oth_v + m * kTile * ds;
-    float* s_w = s_oth_d + m * kTile * ds;   // [m][4][kThreads]
-    float* s_acc = s_w + 4 * m * kThreads;   // [m][2][kTile][d2]
-    const int n_rows = m * kTile * d2;
-    const int n_acc = 2 * n_rows;
-
-    __syncthreads();  // the previous level is done with shared memory
-    for (int idx = tid; idx < n_rows; idx += kThreads) {
-      const int s = idx / (kTile * d2), r = (idx / d2) % kTile, c = idx % d2;
-      const int row = own0 + r;
-      const size_t g = (k0 + s) * slot_stride + static_cast<size_t>(row) * d2 + c;
-      s_own_v[(s * kTile + r) * ds + c] = row < nz ? own_v[g] : 0.f;
-      s_own_d[(s * kTile + r) * ds + c] = row < nz ? own_d[g] : 0.f;
-    }
-    for (int idx = tid; idx < n_acc; idx += kThreads) s_acc[idx] = 0.f;
-
-    for (int tile = tile_begin; tile < tile_end; ++tile) {
-      const int oth0 = tile * kTile;
-      __syncthreads();  // the previous tile's contraction is done
-      for (int idx = tid; idx < n_rows; idx += kThreads) {
-        const int s = idx / (kTile * d2), r = (idx / d2) % kTile, c = idx % d2;
-        const int row = oth0 + r;
-        const size_t g =
-            (k0 + s) * slot_stride + static_cast<size_t>(row) * d2 + c;
-        s_oth_v[(s * kTile + r) * ds + c] = row < nz ? oth_v[g] : 0.f;
-        s_oth_d[(s * kTile + r) * ds + c] = row < nz ? oth_d[g] : 0.f;
-      }
-      __syncthreads();
-
-      // this thread's pair: slot Grams, partials, exclusive products
-      const int own = own0 + a, oth = oth0 + b;
-      const bool live = own < nz && oth < nz;
-      float G[M], P[M][4];
-#pragma unroll
-      for (int s = 0; s < m; ++s) {
-        const float* ov = s_own_v + (s * kTile + a) * ds;
-        const float* od = s_own_d + (s * kTile + a) * ds;
-        const float* xv = s_oth_v + (s * kTile + b) * ds;
-        const float* xd = s_oth_d + (s * kTile + b) * ds;
-        float vv = 0.f, vd = 0.f, dv = 0.f, dd = 0.f;
-        for (int c = 0; c < d2; ++c) {
-          vv = fmaf(ov[c], xv[c], vv);
-          vd = fmaf(ov[c], xd[c], vd);
-          dv = fmaf(od[c], xv[c], dv);
-          dd = fmaf(od[c], xd[c], dd);
-        }
-        // d01 = <vl, dr>, d10 = <dl, vr>: own is lhs on the row side
-        G[s] = slot_gram_zz_partials(vv, row_side ? vd : dv,
-                                     row_side ? dv : vd, dd, base, inc, P[s]);
-      }
-      const size_t at = row_side ? static_cast<size_t>(own) * nz + oth
-                                 : static_cast<size_t>(oth) * nz + own;
-      const float c_m = live ? ct[m * plane + at] : 0.f;
-      float pre = 1.f;
-#pragma unroll
-      for (int s = 0; s < m; ++s) {
-        float suf = 1.f;
-#pragma unroll
-        for (int r = s + 1; r < m; ++r) suf *= G[r];
-        const float mbar = c_m * pre * suf;
-        pre *= G[s];
-        // weights on the own side: value rows pair W_A00 with the other
-        // side's values and W_X with its differences; difference rows
-        // pair W_Y with values and W_dxx with differences
-        s_w[(s * 4 + 0) * kThreads + tid] = mbar * P[s][0];
-        s_w[(s * 4 + 1) * kThreads + tid] = mbar * P[s][row_side ? 1 : 2];
-        s_w[(s * 4 + 2) * kThreads + tid] = mbar * P[s][row_side ? 2 : 1];
-        s_w[(s * 4 + 3) * kThreads + tid] = mbar * P[s][3];
-      }
-      __syncthreads();
-
-      // contraction over the tile's other rows into the own-row sums
-      for (int idx = tid; idx < n_acc; idx += kThreads) {
-        const int s = idx / (2 * kTile * d2);
-        const int half = (idx / (kTile * d2)) % 2;
-        const int r = (idx / d2) % kTile, c = idx % d2;
-        const float* w1 = s_w + (s * 4 + (half ? 2 : 0)) * kThreads + r * kTile;
-        const float* w2 = s_w + (s * 4 + (half ? 3 : 1)) * kThreads + r * kTile;
-        const float* xv = s_oth_v + s * kTile * ds + c;
-        const float* xd = s_oth_d + s * kTile * ds + c;
-        float acc = 0.f;
-#pragma unroll
-        for (int bb = 0; bb < kTile; ++bb) {
-          acc = fmaf(w1[bb], xv[bb * ds], acc);
-          acc = fmaf(w2[bb], xd[bb * ds], acc);
-        }
-        s_acc[idx] += acc;
-      }
-    }
-    __syncthreads();
-
-    for (int idx = tid; idx < n_acc; idx += kThreads) {
-      const int s = idx / (2 * kTile * d2);
-      const int half = (idx / (kTile * d2)) % 2;
-      const int r = (idx / d2) % kTile, c = idx % d2;
-      const int row = own0 + r;
-      if (row < nz)
-        out_blk[(static_cast<size_t>(half) * LT + k0 + s) * slot_stride +
-                static_cast<size_t>(row) * d2 + c] = s_acc[idx];
-    }
-    k0 += m;
+  for (int h = 0; h < 2; ++h)
+    acc[h][0] = acc[h][1] = acc[h][2] = acc[h][3] = 0.f;
+#pragma unroll 8
+  for (int k = 0; k < kZzTile; ++k) {
+    const float a0 = wa[r * rs + k * ks], a1 = wa[(r + 16) * rs + k * ks];
+    const float b0 = wb[r * rs + k * ks], b1 = wb[(r + 16) * rs + k * ks];
+    const float4 v = reinterpret_cast<const float4*>(xv[k])[q];
+    const float4 d = reinterpret_cast<const float4*>(xd[k])[q];
+    acc[0][0] = fmaf(a0, v.x, fmaf(b0, d.x, acc[0][0]));
+    acc[0][1] = fmaf(a0, v.y, fmaf(b0, d.y, acc[0][1]));
+    acc[0][2] = fmaf(a0, v.z, fmaf(b0, d.z, acc[0][2]));
+    acc[0][3] = fmaf(a0, v.w, fmaf(b0, d.w, acc[0][3]));
+    acc[1][0] = fmaf(a1, v.x, fmaf(b1, d.x, acc[1][0]));
+    acc[1][1] = fmaf(a1, v.y, fmaf(b1, d.y, acc[1][1]));
+    acc[1][2] = fmaf(a1, v.z, fmaf(b1, d.z, acc[1][2]));
+    acc[1][3] = fmaf(a1, v.w, fmaf(b1, d.w, acc[1][3]));
   }
 }
 
+// Row `row` of slab p's gradient (side, value / difference vd) of slot k.
+__device__ __forceinline__ float* slab(const KzzBwdArgs& A, int p, int side,
+                                       int vd, int k, int row) {
+  return A.out +
+         ((((static_cast<size_t>(p) * 2 + side) * 2 + vd) * A.lt + k) * A.nz +
+          row) * A.d2p;
+}
+
+// Level m of range pair (ra, rb): slots k0 .. k0 + m - 1.  One body for
+// every level: the slot loops run at run time, so a block's code is the same
+// whatever its level, and the thread's slot Grams and partials sit in
+// register arrays sized for M, written and read at compile-time indices
+// picked by predicates.
+//
+// A tile pair is a sequence of steps, each on one staged channel block of
+// one slot's rows while the next step's rows are staged into the other
+// buffer, each ending in a barrier:
+//   pass 1, every slot: the dots, then (at its last channel block) the slot
+//     Grams and partials, once;
+//   then the weights W = ct * prod_{r != s} G_r * dG_s of every slot, in
+//     place, in registers;
+//   pass 2, every slot: its weights into shared memory (at its first
+//     channel block), then the contraction.
+// dG/da00 is not kept: it is G for rbf and a constant for the linear base.
 template <int M>
-cudaError_t launch_kzz_bwd(const float* vl, const float* dl, const float* vr,
-                           const float* dr, const float* ct, float* out,
-                           int nz, int d2, int base, int increments,
-                           int splits, int tiles_per_split,
-                           cudaStream_t stream) {
-  const int smem =
-      kzz_bwd_smem_floats(M, d2) * static_cast<int>(sizeof(float));
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kzz_bwd_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return e;
+__device__ __forceinline__ void kzz_bwd_level(KzzBwdSmem& s,
+                                              const KzzBwdArgs& A, int m,
+                                              int ra, int rb) {
+  const int k0 = m * (m - 1) / 2;
+  const int ncb = A.d2p / kZzCB;
+  const int steps = 2 * m * ncb;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int g = w >> 1;                          // the gradient it sums
+  const int q = lane & 3, r = (lane >> 2) + 8 * (w & 1);
+  const bool inc = A.increments != 0, sym = A.symmetric != 0;
+  const bool rbf = A.base == kRbf;
+  const size_t plane = static_cast<size_t>(A.nz) * A.nz;
+  const int i_begin = ra * A.per, i_end = min(i_begin + A.per, A.strips);
+  const int j_begin = rb * A.per, j_end = min(j_begin + A.per, A.strips);
+
+  if (sym && ra < rb) {
+    // the entries the mirrored range pair (rb, ra) would write: the lhs
+    // rows of range rb in slab ra and the rhs rows of range ra in slab rb
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int side = 0; side < 2; ++side) {
+      const int p = side ? rb : ra;
+      const int r0 = (side ? i_begin : j_begin) * kZzTile;
+      const int r1 = min((side ? i_end : j_end) * kZzTile, A.nz);
+      const int n4 = (r1 - r0) * A.d2p / 4;
+      for (int vd = 0; vd < 2; ++vd)
+        for (int sl = 0; sl < m; ++sl) {
+          float4* dst =
+              reinterpret_cast<float4*>(slab(A, p, side, vd, k0 + sl, r0));
+          for (int idx = threadIdx.x; idx < n4; idx += kZzThreads)
+            dst[idx] = zero;
+        }
+    }
   }
-  const dim3 grid((nz + kTile - 1) / kTile, splits, 2);
-  kzz_bwd_kernel<M><<<grid, kThreads, smem, stream>>>(
-      vl, dl, vr, dr, ct, out, nz, d2, base, increments, splits,
-      tiles_per_split);
+
+  for (int ti = i_begin; ti < i_end; ++ti) {
+    const int j_first = sym && ra == rb ? ti : j_begin;
+    for (int tj = j_first; tj < j_end; ++tj) {
+      const int i0 = ti * kZzTile, j0 = tj * kZzTile;
+      const bool diag = sym && ti == tj;
+      // the first step's rows; when symmetric, the tile's cotangent
+      // transposed, for the fold
+      zz_stage(s.rows[0], A.vl, A.dl, A.vr, A.dr, k0, i0, j0, 0, A.nz, A.d2);
+      if (sym) {
+        for (int e = threadIdx.x; e < kZzTile * kZzTile; e += kZzThreads) {
+          const int row = j0 + e / kZzTile, col = i0 + e % kZzTile;
+          s.w[0][e / kZzTile][e % kZzTile] =
+              row < A.nz && col < A.nz
+                  ? A.ct[m * plane + static_cast<size_t>(row) * A.nz + col]
+                  : 0.f;
+        }
+      }
+      __syncthreads();
+      // the cotangent of the thread's pairs; when symmetric folded onto the
+      // upper triangle (ct + ct^T above the diagonal, ct on it, 0 below)
+      float c[4];
+#pragma unroll
+      for (int pq = 0; pq < 4; ++pq) {
+        const int il = ty + 16 * (pq >> 1), jl = tx + 16 * (pq & 1);
+        const int i = i0 + il, j = j0 + jl;
+        c[pq] = i < A.nz && j < A.nz
+                    ? A.ct[m * plane + static_cast<size_t>(i) * A.nz + j]
+                    : 0.f;
+        if (diag && il > jl) c[pq] = 0.f;
+        else if (sym && (!diag || il < jl)) c[pq] += s.w[0][jl][il];
+      }
+      // lhs gradients of strip I add over its J tiles, rhs ones of strip J
+      // over its I tiles; the first of each is written
+      const bool first = g < 2 ? tj == j_first : ti == i_begin;
+      const int p_slab = g < 2 ? rb : ra, side = g < 2 ? 0 : 1;
+      const int row0 = g < 2 ? i0 : j0;
+
+      // G[u]: slot u's Gram, then its weight W_A00; P[u]: its partials
+      // dG/d(d01, d10, dxx), then their weights
+      float G[M][4], P[M][4][3], acc[4][4];
+      int buf = 0;
+      for (int t = 0; t < steps; ++t) {
+        const bool pass1 = t < m * ncb;
+        const int sl = (pass1 ? t : t - m * ncb) / ncb, cb = t % ncb;
+        if (t + 1 < steps) {  // the next step's rows into the other buffer
+          const int tn = t + 1 < m * ncb ? t + 1 : t + 1 - m * ncb;
+          zz_stage(s.rows[buf ^ 1], A.vl, A.dl, A.vr, A.dr, k0 + tn / ncb,
+                   i0, j0, tn % ncb, A.nz, A.d2);
+        }
+        if (pass1) {
+          if (cb == 0) {
+#pragma unroll
+            for (int pq = 0; pq < 4; ++pq)
+              acc[pq][0] = acc[pq][1] = acc[pq][2] = acc[pq][3] = 0.f;
+          }
+          zz_dots(s.rows[buf], acc);
+          if (cb == ncb - 1) {
+#pragma unroll
+            for (int pq = 0; pq < 4; ++pq) {
+              float pd[4];
+              const float gv = slot_gram_zz_partials<true>(
+                  acc[pq][0], acc[pq][1], acc[pq][2], acc[pq][3], A.base,
+                  inc, pd);
+#pragma unroll
+              for (int u = 0; u < M; ++u) {
+                if (u == sl) {
+                  G[u][pq] = gv;
+                  P[u][pq][0] = pd[1], P[u][pq][1] = pd[2];
+                  P[u][pq][2] = pd[3];
+                }
+              }
+            }
+          }
+          if (t == m * ncb - 1) {
+            // every slot's weights, in place: Mbar_s = ct * prod_{r < s} G_r
+            // * prod_{r > s} G_r, G_s read before it becomes W_A00
+#pragma unroll
+            for (int pq = 0; pq < 4; ++pq) {
+              float pre = c[pq];
+#pragma unroll
+              for (int u = 0; u < M; ++u) {
+                if (u < m) {
+                  float suf = 1.f;
+#pragma unroll
+                  for (int v = u + 1; v < M; ++v)
+                    if (v < m) suf *= G[v][pq];
+                  const float mbar = pre * suf;
+                  pre *= G[u][pq];
+                  G[u][pq] = mbar * (rbf ? G[u][pq] : (inc ? 0.f : 1.f));
+#pragma unroll
+                  for (int x = 0; x < 3; ++x) P[u][pq][x] *= mbar;
+                }
+              }
+            }
+          }
+        } else {
+          if (cb == 0) {  // slot sl's weights; the slot before's are read
+#pragma unroll
+            for (int u = 0; u < M; ++u) {
+              if (u == sl) {
+#pragma unroll
+                for (int pq = 0; pq < 4; ++pq) {
+                  const int il = ty + 16 * (pq >> 1), jl = tx + 16 * (pq & 1);
+                  s.w[0][il][jl] = G[u][pq];
+#pragma unroll
+                  for (int x = 0; x < 3; ++x) s.w[x + 1][il][jl] = P[u][pq][x];
+                }
+              }
+            }
+            __syncthreads();  // the weights are written
+          }
+          float out[2][4];
+          kzz_contract(s, s.rows[buf], g, r, q, out);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = row0 + r + 16 * h;
+            if (row >= A.nz) continue;
+            float4* dst = reinterpret_cast<float4*>(
+                slab(A, p_slab, side, g & 1, k0 + sl, row) + cb * kZzCB) + q;
+            float4 v = make_float4(out[h][0], out[h][1], out[h][2],
+                                   out[h][3]);
+            if (!first) {
+              const float4 o = *dst;
+              v.x += o.x, v.y += o.y, v.z += o.z, v.w += o.w;
+            }
+            *dst = v;
+          }
+        }
+        __syncthreads();  // this step's rows (and weights) are read
+        buf ^= 1;
+      }
+    }
+  }
+}
+
+// Two blocks an SM (128 registers, a few spilled): on the H100 as fast as
+// one block of 230 registers with none, and faster than three.
+template <int M>
+__global__ void __launch_bounds__(kZzThreads, 2)
+kzz_bwd_kernel(const KzzBwdArgs A) {
+  __shared__ KzzBwdSmem s;
+  const int n_pairs =
+      A.symmetric ? A.ranges * (A.ranges + 1) / 2 : A.ranges * A.ranges;
+  const int m = M - static_cast<int>(blockIdx.x) / n_pairs;
+  const int p = static_cast<int>(blockIdx.x) % n_pairs;
+  int ra, rb;
+  if (A.symmetric) {
+    upper_pair(p, A.ranges, ra, rb);
+  } else {
+    ra = p / A.ranges;
+    rb = p % A.ranges;
+  }
+  kzz_bwd_level<M>(s, A, m, ra, rb);
+}
+
+template <int M>
+cudaError_t launch_kzz_bwd(const KzzBwdArgs& A, cudaStream_t stream) {
+  const int n_pairs =
+      A.symmetric ? A.ranges * (A.ranges + 1) / 2 : A.ranges * A.ranges;
+  kzz_bwd_kernel<M><<<M * n_pairs, kZzThreads, 0, stream>>>(A);
   return cudaGetLastError();
 }
 
@@ -212,13 +340,18 @@ extern "C" int gpsig_kzz_bwd(const float* vl, const float* dl,
                              const float* vr, const float* dr,
                              const float* ct, float* out, int lt, int nz,
                              int d2, int num_levels, int base, int increments,
-                             int splits, int tiles_per_split, void* stream) {
-  const int n_tiles = (nz + 15) / 16;
+                             int symmetric, int ranges, int per,
+                             void* stream) {
+  const int strips = (nz + gpsig::kZzTile - 1) / gpsig::kZzTile;
   if (lt != num_levels * (num_levels + 1) / 2 || nz <= 0 || d2 <= 0 ||
-      n_tiles > 65535 || splits <= 0 || splits > 65535 ||
-      tiles_per_split <= 0 || (splits - 1) * tiles_per_split >= n_tiles)
+      ranges <= 0 || ranges > 1024 || per <= 0 ||
+      (ranges - 1) * per >= strips || ranges * per < strips)
     return static_cast<int>(cudaErrorInvalidValue);
-  GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_kzz_bwd, vl, dl, vr, dr, ct,
-                      out, nz, d2, base, increments, splits, tiles_per_split,
+  const gpsig::KzzBwdArgs A{vl, dl, vr, dr, ct, out,
+                            nz, d2, (d2 + gpsig::kZzCB - 1) / gpsig::kZzCB *
+                                        gpsig::kZzCB,
+                            lt, base, increments, symmetric, ranges, per,
+                            strips};
+  GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_kzz_bwd, A,
                       static_cast<cudaStream_t>(stream))
 }

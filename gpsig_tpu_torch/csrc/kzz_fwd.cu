@@ -6,15 +6,28 @@
 // slots (triangular packing: level m owns slots m(m-1)/2 .. m(m-1)/2+m-1);
 // level 0 is 1.
 //
-// What bounds it on the card: at the serving shape (lt=10, nZ=500, d2=16)
-// the work is 250k outputs x 10 slots x (4 dots of 16 + 3 transcendentals),
-// about 0.3 GFLOP, and the output is (M+1) nZ^2 floats = 5 MB, so a single
-// call is latency- and launch-bound rather than bound by FLOPs or bytes.
-// The design keeps it to one launch with enough independent threads: one
-// thread per (i, j) pair, 16x16 pairs per block, and the four augmented
-// rows of each slot staged through shared memory in 16-column chunks so any
-// feature width d2 tiles through.  Every (i, j) is computed outright; the
-// TPU kernel's upper-triangle-and-mirror is a later optimisation.
+// Symmetric mode (one set of inducing tensors, lhs- and rhs-augmented):
+// a00(i, j) = a00(j, i), d01(i, j) = d10(j, i), dxx(i, j) = dxx(j, i), so
+// Kzz is symmetric.  Only the upper tile pairs (I <= J) are computed, as
+// the TPU kernel computes its upper blocks (symmetric=True,
+// inducing_pallas.py:483-487), and each off-diagonal tile is written twice:
+// at (I, J) and, through a shared-memory transpose so that both stores are
+// coalesced, at (J, I); a diagonal tile writes its upper half and mirrors
+// it.  The output is exactly symmetric.
+//
+// What bounds it on the card: at the serving shape (lt=10, nZ=500, d2=16,
+// symmetric) 125k unordered pairs x 10 slots x (4 dots of 16 + 4
+// transcendentals, expf and three common.cuh::expm1_acc): ~0.08 G FMAs and
+// ~0.15 G instructions of transcendentals, against a 5 MB output -- a few
+// microseconds of issue.
+//
+// The design:
+//   * a block per (32 x 32 tile pair, level), the highest level first (its
+//     blocks carry the most slots), 136 x 4 = 544 blocks at nZ=500, M=4;
+//   * 256 threads of 2 x 2 pairs each (common.cuh: zz_stage, zz_dots):
+//     each slot's rows of both tiles staged once per 16 channels, double
+//     buffered, so one barrier a slot at d2 <= 16; the dots from float4s,
+//     8 loads for 64 FMAs; any width in blocks of 16 channels.
 //
 // Inputs are (lt, nZ, d2) row-major float32: lhs-augmented values vl and
 // differences dl, rhs-augmented vr and dr (inducing_cuda._prep_tensors).
@@ -23,73 +36,106 @@
 namespace gpsig {
 namespace {
 
-constexpr int kTile = 16;  // output tile edge and feature chunk width
-
+// Four blocks an SM (64 registers; 528 slots for the 544 blocks at nZ=500,
+// M=4, so nearly all run at once): faster on the H100 than the three that
+// 80 registers allowed.
 template <int M>
-__global__ void __launch_bounds__(kTile * kTile)
+__global__ void __launch_bounds__(kZzThreads, 4)
 kzz_fwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
                const float* __restrict__ vr, const float* __restrict__ dr,
                float* __restrict__ out, int nz, int d2, int base,
-               int increments) {
-  __shared__ float s_vl[kTile][kTile + 1];
-  __shared__ float s_dl[kTile][kTile + 1];
-  __shared__ float s_vr[kTile][kTile + 1];
-  __shared__ float s_dr[kTile][kTile + 1];
+               int increments, int symmetric) {
+  __shared__ ZzRows s_rows[2];
+  __shared__ float s_t[kZzTile][kZzTile + 1];
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int i0 = blockIdx.y * kTile, j0 = blockIdx.x * kTile;
-  const int i = i0 + ty, j = j0 + tx;
-  const bool live = i < nz && j < nz;
+  const int n = (nz + kZzTile - 1) / kZzTile;
+  const long long n_pairs = symmetric ? static_cast<long long>(n) * (n + 1) / 2
+                                      : static_cast<long long>(n) * n;
+  const int m = M - static_cast<int>(blockIdx.x / n_pairs);
+  const long long p = blockIdx.x % n_pairs;
+  int ti, tj;
+  if (symmetric) {
+    upper_pair(p, n, ti, tj);
+  } else {
+    ti = static_cast<int>(p / n);
+    tj = static_cast<int>(p % n);
+  }
+  const int i0 = ti * kZzTile, j0 = tj * kZzTile;
+  const int k0 = m * (m - 1) / 2;
+  const int ncb = (d2 + kZzCB - 1) / kZzCB;
+  const int n_it = m * ncb;  // (slot, channel block) in order
   const bool inc = increments != 0;
-  const size_t plane = static_cast<size_t>(nz) * nz;
-  const size_t at = static_cast<size_t>(i) * nz + j;
-  // staging: thread (ty, tx) brings column c0+tx of lhs row i0+ty and of
-  // rhs row j0+ty; rows and columns past the edge stage as 0
-  const int li = i0 + ty, rj = j0 + ty;
 
-  if (live) out[at] = 1.f;
-  int k = 0;
+  float R[4] = {1.f, 1.f, 1.f, 1.f}, acc[4][4];
+  zz_stage(s_rows[0], vl, dl, vr, dr, k0, i0, j0, 0, nz, d2);
+  __syncthreads();
+  for (int it = 0; it < n_it; ++it) {
+    // the next (slot, channel block) into the other buffer, read by the
+    // iteration before the last barrier
+    if (it + 1 < n_it)
+      zz_stage(s_rows[(it + 1) & 1], vl, dl, vr, dr, k0 + (it + 1) / ncb,
+               i0, j0, (it + 1) % ncb, nz, d2);
+    const int cb = it % ncb;
+    if (cb == 0) {
 #pragma unroll
-  for (int m = 1; m <= M; ++m) {
-    float R = 1.f;
-    for (int s = 0; s < m; ++s, ++k) {
-      const size_t slot = static_cast<size_t>(k) * nz * d2;
-      float a00 = 0.f, d01 = 0.f, d10 = 0.f, dxx = 0.f;
-      for (int c0 = 0; c0 < d2; c0 += kTile) {
-        const int c = c0 + tx;
-        const bool lok = li < nz && c < d2, rok = rj < nz && c < d2;
-        const size_t lo = slot + static_cast<size_t>(li) * d2 + c;
-        const size_t ro = slot + static_cast<size_t>(rj) * d2 + c;
-        s_vl[ty][tx] = lok ? vl[lo] : 0.f;
-        s_dl[ty][tx] = lok ? dl[lo] : 0.f;
-        s_vr[ty][tx] = rok ? vr[ro] : 0.f;
-        s_dr[ty][tx] = rok ? dr[ro] : 0.f;
-        __syncthreads();
-#pragma unroll
-        for (int cc = 0; cc < kTile; ++cc) {
-          const float a = s_vl[ty][cc], b = s_dl[ty][cc];
-          const float x = s_vr[tx][cc], y = s_dr[tx][cc];
-          a00 = fmaf(a, x, a00);
-          d01 = fmaf(a, y, d01);
-          d10 = fmaf(b, x, d10);
-          dxx = fmaf(b, y, dxx);
-        }
-        __syncthreads();
-      }
-      R *= slot_gram_zz(a00, d01, d10, dxx, base, inc);
+      for (int q = 0; q < 4; ++q)
+        acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.f;
     }
-    if (live) out[m * plane + at] = R;
+    zz_dots(s_rows[it & 1], acc);
+    if (cb == ncb - 1) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        R[q] *= slot_gram_zz<true>(acc[q][0], acc[q][1], acc[q][2],
+                                   acc[q][3], base, inc);
+    }
+    __syncthreads();
+  }
+
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const bool diag = symmetric && ti == tj;
+  const size_t plane = static_cast<size_t>(nz) * nz;
+  float* o = out + m * plane;
+  // (i, j) itself; a diagonal tile its upper half
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r = ty + 16 * (q >> 1), c = tx + 16 * (q & 1);
+    const int i = i0 + r, j = j0 + c;
+    if (i < nz && j < nz && (!diag || r <= c)) {
+      const size_t at = static_cast<size_t>(i) * nz + j;
+      o[at] = R[q];
+      if (m == 1) out[at] = 1.f;  // level 0
+    }
+  }
+  if (!symmetric) return;
+  // the mirror (j, i) through a transpose: thread (ty, tx) writes row
+  // j0 + r, column i0 + c, the value of pair (i0 + c, j0 + r); a diagonal
+  // tile its lower half
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    s_t[ty + 16 * (q >> 1)][tx + 16 * (q & 1)] = R[q];
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r = ty + 16 * (q >> 1), c = tx + 16 * (q & 1);
+    const int row = j0 + r, col = i0 + c;
+    if (row < nz && col < nz && (!diag || r > c)) {
+      const size_t at = static_cast<size_t>(row) * nz + col;
+      o[at] = s_t[c][r];
+      if (m == 1) out[at] = 1.f;
+    }
   }
 }
 
 template <int M>
 cudaError_t launch_kzz(const float* vl, const float* dl, const float* vr,
                        const float* dr, float* out, int nz, int d2, int base,
-                       int increments, cudaStream_t stream) {
-  const dim3 block(kTile, kTile);
-  const dim3 grid((nz + kTile - 1) / kTile, (nz + kTile - 1) / kTile);
-  kzz_fwd_kernel<M><<<grid, block, 0, stream>>>(vl, dl, vr, dr, out, nz, d2,
-                                                base, increments);
+                       int increments, int symmetric, cudaStream_t stream) {
+  const long long n = (nz + kZzTile - 1) / kZzTile;
+  const long long blocks = M * (symmetric ? n * (n + 1) / 2 : n * n);
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  kzz_fwd_kernel<M><<<static_cast<unsigned>(blocks), kZzThreads, 0,
+                      stream>>>(vl, dl, vr, dr, out, nz, d2, base,
+                                increments, symmetric);
   return cudaGetLastError();
 }
 
@@ -99,11 +145,10 @@ cudaError_t launch_kzz(const float* vl, const float* dl, const float* vr,
 extern "C" int gpsig_kzz_fwd(const float* vl, const float* dl,
                              const float* vr, const float* dr, float* out,
                              int lt, int nz, int d2, int num_levels, int base,
-                             int increments, void* stream) {
-  if (lt != num_levels * (num_levels + 1) / 2 || nz <= 0 || d2 <= 0 ||
-      (nz + 15) / 16 > 65535)
+                             int increments, int symmetric, void* stream) {
+  if (lt != num_levels * (num_levels + 1) / 2 || nz <= 0 || d2 <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_kzz, vl, dl, vr, dr, out, nz,
-                      d2, base, increments,
+                      d2, base, increments, symmetric,
                       static_cast<cudaStream_t>(stream))
 }

@@ -406,10 +406,11 @@ extern "C" int gpsig_seq_fwd(const float* ov, const float* od,
 }
 
 // Test hook, not a kernel of any path: for args[i] = (a00, d01, d10, dxx)
-// writes out[i] = (expm1_acc(a00), expm1f(a00), the rbf slot Gram with
-// expm1_acc, the same with expm1f), so that the shorter expm1 is held
-// against float64 alone and where its terms cancel (chip_smoke.py phase
-// 2e, tests/test_torch_cuda_kernels.py).
+// writes out[2i] = (expm1_acc(a00), expm1f(a00), the rbf slot Gram with
+// expm1_acc, the same with expm1f) and out[2i + 1] = its partials
+// dG/d(d01, d10, dxx) with expm1_acc (K2's weights) and dG/d(d01) with
+// expm1f, so that the shorter expm1 is held against float64 alone and where
+// its terms cancel (chip_smoke.py phase 2e, tests/test_torch_cuda_kernels.py).
 namespace gpsig {
 namespace {
 __global__ void expm1_probe_kernel(const float4* __restrict__ args,
@@ -417,9 +418,13 @@ __global__ void expm1_probe_kernel(const float4* __restrict__ args,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float4 a = args[i];
-  out[i] = make_float4(expm1_acc(a.x), expm1f(a.x),
-                       slot_gram_zz<true>(a.x, a.y, a.z, a.w, kRbf, true),
-                       slot_gram_zz<false>(a.x, a.y, a.z, a.w, kRbf, true));
+  float p[4], pf[4];
+  const float g = slot_gram_zz_partials<true>(a.x, a.y, a.z, a.w, kRbf, true,
+                                              p);
+  const float gf = slot_gram_zz_partials<false>(a.x, a.y, a.z, a.w, kRbf,
+                                                true, pf);
+  out[2 * i] = make_float4(expm1_acc(a.x), expm1f(a.x), g, gf);
+  out[2 * i + 1] = make_float4(p[1], p[2], p[3], pf[1]);
 }
 }  // namespace
 }  // namespace gpsig

@@ -18,14 +18,14 @@ float32":
 * ``'on'`` on a CPU tensor raises.
 * ``fast_math`` is accepted; every value means full f32 on the card.
 
-No fallback is silent: the kernels take any sequence lengths, K1 and K3-K6
-any feature width and K1, K2, K4-K6 any number of levels.  Two caps
-remain, each raising ``NotImplementedError`` on the card: K2 (the Kzz
-gradient of inducing tensors) past 140 augmented channels at 4 levels, and
-K3 past 16 levels (ROADMAP, Queue 3).  Without ``difference`` the seq x seq
-Gram takes the reference graph, as the JAX package does.  The Kxx-diagonal leg
-keeps JAX's ``_closed_form_fns`` dispatch: cancellation-free closed forms
-at f32, the naive graph at f64 or under ``'off'``.
+No fallback is silent: the kernels take any sequence lengths, any feature
+width and any number of levels (K3 past 16 levels on a slower serial
+path).  Kzz of inducing tensors runs K1 and K2 in symmetric mode: each
+unordered pair once, mirrored, so it is exactly symmetric.  Without
+``difference`` the seq x seq Gram takes the reference graph, as the JAX
+package does.  The Kxx-diagonal leg keeps JAX's ``_closed_form_fns``
+dispatch: cancellation-free closed forms at f32, the naive graph at f64 or
+under ``'off'``.
 
 Outside the port so far -- ``order > 1``, lags, low-rank features,
 ``K_blocked`` and the public ``K_tens`` / ``K_tens_vs_seq`` -- the module

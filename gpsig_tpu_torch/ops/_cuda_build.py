@@ -43,14 +43,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # (name, argtypes): pointers and the stream as c_void_p, sizes as c_int
 _SIGNATURES = {
-    # vl, dl, vr, dr, out, lt, nz, d2, num_levels, base, increments, stream
-    "gpsig_kzz_fwd": [_P] * 5 + [_I] * 6 + [_P],
+    # vl, dl, vr, dr, out, lt, nz, d2, num_levels, base, increments,
+    # symmetric, stream
+    "gpsig_kzz_fwd": [_P] * 5 + [_I] * 7 + [_P],
     # vl, dl, xv, xd, out, lt, nz, n_ex, L, d2, num_levels, base,
     # increments, difference, stream
     "gpsig_kzx_fwd": [_P] * 5 + [_I] * 9 + [_P],
     # vl, dl, vr, dr, ct, out, lt, nz, d2, num_levels, base, increments,
-    # splits, tiles_per_split, stream
-    "gpsig_kzz_bwd": [_P] * 6 + [_I] * 8 + [_P],
+    # symmetric, ranges, strips per range, stream
+    "gpsig_kzz_bwd": [_P] * 6 + [_I] * 9 + [_P],
     # vl, dl, xv, xd, ct, gz, gx, ck, lt, nz, n_ex, L, d2, num_levels,
     # base, increments, difference, t_chunk, stage_rows, stream
     "gpsig_kzx_bwd": [_P] * 8 + [_I] * 11 + [_P],

@@ -31,7 +31,16 @@ the rbf exponent -|z - x|^2/2 into one dot product, lhs ``[z, -|z|^2/2, 1]``
 against rhs ``[x, 1, -|x|^2/2]``, and the exact norm-channel differences
 ``-<z1 + z0, z1 - z0>/2`` of each increment.  The kernels take the augmented
 rows and nothing else.  The TPU-only machinery (lane batching, VMEM plans,
-padding to 128, the Kzz mirror) has no counterpart.
+padding to 128) has no counterpart.
+
+Symmetric mode (``symmetric=True`` of ``kzz_fwd`` / ``kzz_bwd``, which
+``fused_tensor_levels`` asks for: it builds both sides from one Z): each
+unordered pair of inducing tensors is computed once and mirrored, as the
+TPU kernel computes its upper blocks once and mirrors them
+(``inducing_pallas.py:483-487``), so Kzz is exactly symmetric; the
+backward takes the cotangent folded onto the upper triangle (``_fold``,
+``inducing_pallas.py:497-501``).  ``signature_cuda`` shares ``_mirror`` and
+``_fold``.
 
 Each wrapper's docstring says what bounds its kernel on the H100 and what
 the design does about it; the header of its ``.cu`` file has the detail.
@@ -48,11 +57,10 @@ from .signature import (cumsum_exclusive,
 
 SUPPORTED_BASES = ("rbf", "linear")
 _BASE_IDS = {"rbf": 0, "linear": 1}  # csrc/common.cuh::Base
-_K2_TILE = 16  # csrc/kzz_bwd.cu::kTile
-_SMEM_MAX = 227 * 1024  # shared memory a block may take on the H100
-# K3 keeps the block's sub-chain sums, M(M+1)(M+2)/6 a lane, in shared
-# memory beside one warp's (csrc/kzx_fwd.cu): at most 16 levels
-_K3_MAX_LEVELS = 16
+_ZZ_TILE = 32  # csrc/common.cuh::kZzTile: K1's and K2's tile edge
+_ZZ_CB = 16  # csrc/common.cuh::kZzCB: channels a staged row block holds
+# K2 gives each strip of tile rows at most _K2_RANGES partial slabs
+_K2_RANGES = 32
 _K4_LANES = 32  # csrc/kzx_bwd.cu::kZ
 _K4_MAX_CHUNK = 8  # time steps a K4 block stages at once: csrc/kzx_bwd.cu::kTG
 _K4_SMEM = 64 * 1024  # K4's shared memory for a chunk of steps
@@ -61,7 +69,6 @@ _K4_SMEM = 64 * 1024  # K4's shared memory for a chunk of steps
 # blocks on an SM with the chunk's 64 KB)
 _K4_ROW_CHANNELS = 16
 _K4_ROWS_SMEM = 48 * 1024
-_TARGET_BLOCKS = 2 * 132  # two blocks for each SM of an H100
 
 
 # ---------------------------------------------------------------------------
@@ -120,9 +127,9 @@ def _check_config(num_levels: int, base: str, lt: int):
 
 
 def _check_cuda(name: str, *tensors):
-    dev = tensors[0].device
+    dev = tensors[0].get_device()  # -1 off the card; an int is quick to get
     for t in tensors:
-        if t.device != dev or dev.type != "cuda":
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"{name}: inputs must share one CUDA device")
         if t.dtype != torch.float32:
             raise TypeError(
@@ -141,7 +148,32 @@ def _launch(fn_name: str, num_levels: int, *args):
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of t's card as a raw handle.  The wrappers' host
+    work sets a call's time at small shapes, and this lookup is far
+    cheaper than building ``torch.cuda.current_stream(...)`` (PERF.md
+    §6)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def _mirror(K):
+    """(..., N, N) -> exactly symmetric, from the upper triangle."""
+    return torch.triu(K) + torch.triu(K, 1).transpose(-1, -2)
+
+
+def _fold(ct):
+    """The cotangent of ``_mirror``: ct + ct^T above the diagonal, ct on
+    it, 0 below."""
+    return (torch.triu(ct + ct.transpose(-1, -2), 1)
+            + torch.diag_embed(torch.diagonal(ct, dim1=-2, dim2=-1)))
+
+
+def _check_zz(name: str, Vl, Dl, Vr, Dr):
+    """Kzz rows: four arrays of one shape (lt, nZ, d2), so one set of
+    inducing tensors; symmetric mode needs nothing more."""
+    for t in (Dl, Vr, Dr):
+        if t.shape != Vl.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                             f"{tuple(Vl.shape)}")
 
 
 # ---------------------------------------------------------------------------
@@ -150,10 +182,11 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def kzz_fwd_plain(Vl, Dl, Vr, Dr, *, num_levels: int, base: str,
-                  increments: bool):
+                  increments: bool, symmetric: bool = False):
     """Plain torch version of K1 on the augmented rows (lt, nZ, d2):
-    ``(num_levels+1, nZ, nZ)``.  f32 uses ``gram.exp_accurate`` and the
-    Taylor ``expm1``; f64 the native exp/expm1."""
+    ``(num_levels+1, nZ, nZ)``, mirrored from its upper triangle when
+    ``symmetric``.  f32 uses ``gram.exp_accurate`` and the Taylor
+    ``expm1``; f64 the native exp/expm1."""
     def dots(A, B):
         return torch.matmul(A, B.transpose(1, 2))
 
@@ -167,34 +200,44 @@ def kzz_fwd_plain(Vl, Dl, Vr, Dr, *, num_levels: int, base: str,
         G = gram.exp_accurate(dots(Vl, Vr)) * (
             expm1(d01 + d10 + dots(Dl, Dr)) - expm1(d01) - expm1(d10)
         )
-    return tensor_kern(G, num_levels)
+    out = tensor_kern(G, num_levels)
+    return _mirror(out) if symmetric else out
 
 
 def kzz_fwd(Vl, Dl, Vr, Dr, *, num_levels: int, base: str,
-            increments: bool):
+            increments: bool, symmetric: bool = False):
     """K1 on CUDA float32 tensors; the plain version on CPU tensors.
 
     Replaces ``_kernel_tens_fwd`` (``gpsig_tpu/ops/inducing_pallas.py:223``).
-    Bound on the H100: at nZ=500 the output is (M+1) nZ^2 floats = 5 MB and
-    the work ~0.3 GFLOP, so a call is latency- and launch-bound.  Design:
-    one launch, one thread per (i, j), rows staged through shared memory in
-    16-column chunks (``csrc/kzz_fwd.cu``)."""
+    ``symmetric``: the rows are one set of inducing tensors (lhs- and
+    rhs-augmented), each unordered pair is computed once and written to
+    (i, j) and (j, i), so the output is exactly symmetric.
+    Bound on the H100: at nZ=500 about 0.16 G FMAs of dots for the upper
+    pairs and 4 transcendentals a slot Gram, against a 5 MB output: issue
+    of the dots and transcendentals, a few microseconds, so one launch
+    with every SM busy.  Design: a block per (32 x 32 tile pair, level),
+    the upper tile pairs only when symmetric (136 x 4 = 544 blocks at
+    nZ=500, M=4, the highest level first); 256 threads of 2 x 2 pairs
+    each, a slot's rows of both tiles staged once per 16 channels and
+    double-buffered (one barrier a slot at d2 <= 16), dots from float4s
+    (8 loads for 64 FMAs); the mirror tile is written through a
+    shared-memory transpose, so both stores are coalesced
+    (``csrc/kzz_fwd.cu``)."""
     lt, nz, d2 = Vl.shape
     _check_config(num_levels, base, lt)
-    for t in (Dl, Vr, Dr):
-        if t.shape != Vl.shape:
-            raise ValueError(f"kzz_fwd: shape {tuple(t.shape)} != "
-                             f"{tuple(Vl.shape)}")
-    if Vl.device.type == "cpu":
+    _check_zz("kzz_fwd", Vl, Dl, Vr, Dr)
+    if Vl.is_cpu:
         return kzz_fwd_plain(Vl, Dl, Vr, Dr, num_levels=num_levels,
-                             base=base, increments=increments)
+                             base=base, increments=increments,
+                             symmetric=symmetric)
     _check_cuda("kzz_fwd", Vl, Dl, Vr, Dr)
     Vl, Dl, Vr, Dr = (t.contiguous() for t in (Vl, Dl, Vr, Dr))
     out = torch.empty((num_levels + 1, nz, nz), dtype=torch.float32,
                       device=Vl.device)
     _launch("gpsig_kzz_fwd", num_levels, Vl.data_ptr(), Dl.data_ptr(),
             Vr.data_ptr(), Dr.data_ptr(), out.data_ptr(), lt, nz, d2,
-            num_levels, _BASE_IDS[base], int(increments), _stream(Vl))
+            num_levels, _BASE_IDS[base], int(increments), int(symmetric),
+            _stream(Vl))
     kzz_fwd.launches += 1
     return out
 
@@ -264,10 +307,12 @@ def _zz_partials(Vl, Dl, Vr, Dr, base: str, increments: bool,
 
 
 def kzz_bwd_plain(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
-                  increments: bool):
-    """Plain torch version of K2: the VJP of ``kzz_fwd_plain`` under the
-    cotangent ``ct`` (num_levels+1, nZ, nZ) -> (g_vl, g_dl, g_vr, g_dr),
-    each (lt, nZ, d2)."""
+                  increments: bool, symmetric: bool = False):
+    """Plain torch version of K2: the VJP of ``kzz_fwd_plain`` (with the
+    same ``symmetric``) under the cotangent ``ct`` (num_levels+1, nZ, nZ)
+    -> (g_vl, g_dl, g_vr, g_dr), each (lt, nZ, d2)."""
+    if symmetric:
+        ct = _fold(ct)
     G, P = _zz_partials(Vl, Dl, Vr, Dr, base, increments)
     mbar = [None] * G.shape[0]
     for m, slots in _level_slots(num_levels):
@@ -289,56 +334,67 @@ def kzz_bwd_plain(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
             _contract([(cols, W_01, Vl), (cols, W_xx, Dl)], Dr))
 
 
+def _k2_plan(nz: int):
+    """K2's launch plan: the strips of 32 rows go in ``ranges`` ranges of
+    ``per`` strips; a block takes one range pair (the upper ones when
+    symmetric) at one level.  Returns (ranges, per)."""
+    strips = -(-nz // _ZZ_TILE)
+    per = -(-strips // min(strips, _K2_RANGES))
+    return -(-strips // per), per
+
+
 def kzz_bwd(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
-            increments: bool):
+            increments: bool, symmetric: bool = False):
     """K2 on CUDA float32 tensors; the plain version on CPU tensors.
 
     Replaces ``_kernel_tens_bwd`` (``gpsig_tpu/ops/inducing_pallas.py:256``).
-    Bound on the H100: at nZ=500, lt=10, d2=16 about 0.5 G FMAs (the slot
-    dots recomputed on both sides, the weight contractions) against ~6 MB
-    of inputs and outputs, so FMA throughput bounds it (~0.015 ms at 67
-    TFLOP/s).
-    Design: one launch of two sides (grid z); a block owns a 16-row strip
-    of one side and walks a share of the other side's 16-row tiles, level
-    by level: each thread computes one pair's slot Grams, exclusive
-    products and weights into shared memory, then the block contracts the
-    weights with the other side's rows into per-row accumulators.  The
-    shares are per-block partial slabs summed here with ``torch.sum``, as
-    XLA summed the TPU kernel's slabs; no atomics, so the result is
-    deterministic (``csrc/kzz_bwd.cu``)."""
+    ``symmetric``: the VJP of ``kzz_fwd(symmetric=True)``; the cotangent
+    is folded onto the upper triangle (``_fold``; the kernel folds as it
+    reads) and only the upper tile pairs are evaluated.
+    Bound on the H100: at nZ=500, lt=10, d2=16, symmetric, each unordered
+    pair's slot Grams once (4 dots of d2 and 4 transcendentals) and four
+    d2-wide weight contractions on each side, about 0.2 G FMAs against ~6
+    MB of inputs and outputs: FMA and transcendental issue (~0.007 ms at
+    67 TFLOP/s).
+    Design: a block per (range pair, level), the highest level first; at
+    nZ <= 1,024 a range is one strip of 32 rows, so 136 upper tile pairs x
+    4 levels = 544 blocks at nZ=500, M=4 (1,024 when not symmetric), on
+    132 SMs.  For each tile pair a block of 256 threads, 2 x 2 pairs each,
+    computes the level's slot Grams once (rows staged 16 channels at a
+    time, dots from float4s), the exclusive products and the four weights,
+    then per slot contracts the weights (in shared memory) with the rows
+    of both tiles: the lhs gradients of strip I and the rhs gradients of
+    strip J from the one evaluation, 2 x 4 outputs a thread, 6 shared
+    loads for 16 FMAs.  Shared memory does not grow with the width or the
+    level count.  Each block writes its lhs gradients into the partial
+    slab of its J range and its rhs gradients into that of its I range
+    (and, when symmetric, zeros where the mirrored range pair would
+    write), so every slab entry is written once; the ``ranges`` slabs are
+    summed here with ``torch.sum``: no atomics, deterministic
+    (``csrc/kzz_bwd.cu``)."""
     lt, nz, d2 = Vl.shape
     _check_config(num_levels, base, lt)
-    for t in (Dl, Vr, Dr):
-        if t.shape != Vl.shape:
-            raise ValueError(f"kzz_bwd: shape {tuple(t.shape)} != "
-                             f"{tuple(Vl.shape)}")
+    _check_zz("kzz_bwd", Vl, Dl, Vr, Dr)
     if ct.shape != (num_levels + 1, nz, nz):
         raise ValueError(f"kzz_bwd: cotangent shape {tuple(ct.shape)}")
-    if Vl.device.type == "cpu":
+    if Vl.is_cpu:
         return kzz_bwd_plain(Vl, Dl, Vr, Dr, ct, num_levels=num_levels,
-                             base=base, increments=increments)
+                             base=base, increments=increments,
+                             symmetric=symmetric)
     _check_cuda("kzz_bwd", Vl, Dl, Vr, Dr, ct)
-    # csrc/kzz_bwd.cu::kzz_bwd_smem_floats: a level's rows, weights and
-    # accumulators all in shared memory
-    smem = 4 * num_levels * _K2_TILE * (6 * d2 + 4 + 4 * _K2_TILE)
-    if smem > _SMEM_MAX:
-        raise NotImplementedError(
-            f"kzz_bwd: K2 holds a level's rows in shared memory, {smem} bytes "
-            f"at d2={d2} and {num_levels} levels, past the card's {_SMEM_MAX}"
-            " (ROADMAP Queue 3)")
     Vl, Dl, Vr, Dr, ct = (t.contiguous() for t in (Vl, Dl, Vr, Dr, ct))
-    tiles = -(-nz // _K2_TILE)
-    per = -(-tiles // min(tiles, -(-_TARGET_BLOCKS // (2 * tiles))))
-    splits = -(-tiles // per)
-    out = torch.empty((2, splits, 2, lt, nz, d2), dtype=torch.float32,
+    ranges, per = _k2_plan(nz)
+    d2p = -(-d2 // _ZZ_CB) * _ZZ_CB  # slab rows padded to channel blocks
+    # (ranges, [g_vl, g_dl, g_vr, g_dr], lt, nZ, d2p)
+    out = torch.empty((ranges, 4, lt, nz, d2p), dtype=torch.float32,
                       device=Vl.device)
     _launch("gpsig_kzz_bwd", num_levels, Vl.data_ptr(), Dl.data_ptr(),
             Vr.data_ptr(), Dr.data_ptr(), ct.data_ptr(), out.data_ptr(), lt,
-            nz, d2, num_levels, _BASE_IDS[base], int(increments), splits,
-            per, _stream(Vl))
+            nz, d2, num_levels, _BASE_IDS[base], int(increments),
+            int(symmetric), ranges, per, _stream(Vl))
     kzz_bwd.launches += 1
-    g = torch.sum(out, dim=1)
-    return g[0, 0], g[0, 1], g[1, 0], g[1, 1]
+    g = torch.sum(out, dim=0)
+    return (g if d2p == d2 else g[..., :d2]).unbind(0)
 
 
 kzz_bwd.launches = 0
@@ -389,21 +445,19 @@ def kzx_fwd(Vl, Dl, Xv, Xd, *, num_levels: int, base: str, increments: bool,
     and one example; each warp takes a range of a chunk's steps with
     register-tiled dots and sums every sub-chain of each level's slots over
     it, and the ranges are chained in time order by Chen's identity
-    (``csrc/kzx_fwd.cu``)."""
+    (``csrc/kzx_fwd.cu``).  Past 16 levels (the chained states outgrow
+    shared memory) a serial path takes over: a warp a block walks the
+    steps in order with each level's prefix chain sums, lt floats a lane."""
     lt, nz, d2 = Vl.shape
     n_ex, L, _ = Xv.shape
     _check_config(num_levels, base, lt)
     if Dl.shape != Vl.shape or Xd.shape != Xv.shape or Xv.shape[-1] != d2:
         raise ValueError("kzx_fwd: inconsistent input shapes")
-    if Vl.device.type == "cpu":
+    if Vl.is_cpu:
         return kzx_fwd_plain(Vl, Dl, Xv, Xd, num_levels=num_levels,
                              base=base, increments=increments,
                              difference=difference)
     _check_cuda("kzx_fwd", Vl, Dl, Xv, Xd)
-    if num_levels > _K3_MAX_LEVELS:
-        raise NotImplementedError(
-            f"kzx_fwd: K3 takes at most {_K3_MAX_LEVELS} levels on the card "
-            "(its sub-chain sums outgrow shared memory past that)")
     Vl, Dl, Xv, Xd = (t.contiguous() for t in (Vl, Dl, Xv, Xd))
     out = torch.empty((num_levels + 1, nz, n_ex), dtype=torch.float32,
                       device=Vl.device)
@@ -535,7 +589,7 @@ def kzx_bwd(Vl, Dl, Xv, Xd, ct, *, num_levels: int, base: str,
         raise ValueError("kzx_bwd: inconsistent input shapes")
     if ct.shape != (num_levels + 1, nz, n_ex):
         raise ValueError(f"kzx_bwd: cotangent shape {tuple(ct.shape)}")
-    if Vl.device.type == "cpu":
+    if Vl.is_cpu:
         return kzx_bwd_plain(Vl, Dl, Xv, Xd, ct, num_levels=num_levels,
                              base=base, increments=increments,
                              difference=difference)
@@ -580,17 +634,18 @@ class _KzzFn(torch.autograd.Function):
     """Kzz level stack over the augmented rows: forward K1, backward K2."""
 
     @staticmethod
-    def forward(ctx, Vl, Dl, Vr, Dr, num_levels, base, increments):
+    def forward(ctx, Vl, Dl, Vr, Dr, num_levels, base, increments,
+                symmetric):
         ctx.save_for_backward(Vl, Dl, Vr, Dr)
         ctx.opts = dict(num_levels=num_levels, base=base,
-                        increments=increments)
+                        increments=increments, symmetric=symmetric)
         return kzz_fwd(Vl, Dl, Vr, Dr, **ctx.opts)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ct):
         grads = kzz_bwd(*ctx.saved_tensors, ct.contiguous(), **ctx.opts)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 class _KzxFn(torch.autograd.Function):
@@ -620,11 +675,13 @@ def fused_tensor_levels(Z, *, num_levels: int, base: str = "rbf",
                         increments: bool = True):
     """(num_levels+1, nZ, nZ) inducing-tensor level Grams.
 
-    Z: (lt, nZ, 2, d) with increments, else (lt, nZ, d).  Differentiable:
-    K1 forward, K2 backward."""
+    Z: (lt, nZ, 2, d) with increments, else (lt, nZ, d).  Both sides come
+    from one Z, so K1 and K2 run in symmetric mode: the Gram is exactly
+    symmetric (the JAX kernel's, mirrored by blocks, is too).
+    Differentiable: K1 forward, K2 backward."""
     Vl, Dl = _prep_tensors(Z, base, increments, lhs=True)
     Vr, Dr = _prep_tensors(Z, base, increments, lhs=False)
-    return _KzzFn.apply(Vl, Dl, Vr, Dr, num_levels, base, increments)
+    return _KzzFn.apply(Vl, Dl, Vr, Dr, num_levels, base, increments, True)
 
 
 def fused_tens_vs_seq_levels(Z, X, *, num_levels: int, base: str = "rbf",

@@ -99,18 +99,6 @@ def _steps(L: int, difference: bool) -> int:
     return L - 1 if difference else L
 
 
-def _mirror(K):
-    """(..., N, N) -> exactly symmetric, from the upper triangle."""
-    return torch.triu(K) + torch.triu(K, 1).transpose(-1, -2)
-
-
-def _fold(ct):
-    """The cotangent of ``_mirror``: ct + ct^T above the diagonal, ct on
-    it, 0 below."""
-    return (torch.triu(ct + ct.transpose(-1, -2), 1)
-            + torch.diag_embed(torch.diagonal(ct, dim1=-2, dim2=-1)))
-
-
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -189,7 +177,7 @@ def seq_fwd_plain(Vl, Dl, Vr, Dr, *, num_levels: int, base: str,
                                dots=_pair_dots)
         blocks.append(_levels(M, num_levels))
     out = torch.cat(blocks, dim=1)
-    return _mirror(out) if symmetric else out
+    return ic._mirror(out) if symmetric else out
 
 
 def seq_bwd_plain(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
@@ -199,7 +187,7 @@ def seq_bwd_plain(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
     (g_vr, g_dr) (N2, L2, d2)."""
     _check_rows("seq_bwd_plain", Vl, Dl, Vr, Dr, symmetric)
     if symmetric:
-        ct = _fold(ct)
+        ct = ic._fold(ct)
     n1, n2 = Vl.shape[0], Vr.shape[0]
     T1 = _steps(Vl.shape[1], difference)
     T2 = _steps(Vr.shape[1], difference)
@@ -282,7 +270,7 @@ def seq_fwd(Vl, Dl, Vr, Dr, *, num_levels: int, base: str, difference: bool,
     the inner axis; G and cpl come from ``_k5_plan`` (``csrc/seq_fwd.cu``)."""
     _check_config(num_levels, base)
     _check_rows("seq_fwd", Vl, Dl, Vr, Dr, symmetric)
-    if Vl.device.type == "cpu":
+    if Vl.is_cpu:
         return seq_fwd_plain(Vl, Dl, Vr, Dr, num_levels=num_levels,
                              base=base, difference=difference,
                              symmetric=symmetric)
@@ -344,7 +332,7 @@ def seq_bwd(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
     (n1, L1, d2), (n2, L2, _) = Vl.shape, Vr.shape
     if ct.shape != (num_levels + 1, n1, n2):
         raise ValueError(f"seq_bwd: cotangent shape {tuple(ct.shape)}")
-    if Vl.device.type == "cpu":
+    if Vl.is_cpu:
         return seq_bwd_plain(Vl, Dl, Vr, Dr, ct, num_levels=num_levels,
                              base=base, difference=difference,
                              symmetric=symmetric)
@@ -352,7 +340,7 @@ def seq_bwd(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
     T1, T2 = _steps(L1, difference), _steps(L2, difference)
     grads = [torch.zeros_like(t) for t in (Vl, Dl, Vr, Dr)]
     if symmetric:
-        ct = _fold(ct)
+        ct = ic._fold(ct)
     # the shorter sequence on the inner axis
     swap = not symmetric and T1 < T2
     (ov, od), (iv, id_) = (((Vr, Dr), (Vl, Dl)) if swap
@@ -406,14 +394,17 @@ seq_bwd.launches = 0
 
 def expm1_probe(args):
     """Test hook of ``csrc/common.cuh``'s expm1 on a CUDA float32 tensor
-    args (n, 4) = (a00, d01, d10, dxx) rows: (n, 4) = (expm1_acc(a00),
-    expm1f(a00), the rbf slot Gram of the row with expm1_acc -- as K3 and
-    K5 compute it -- and with expm1f).  Not a kernel of any path."""
+    args (n, 4) = (a00, d01, d10, dxx) rows: (n, 8) = (expm1_acc(a00),
+    expm1f(a00), the rbf slot Gram of the row with expm1_acc -- as K1, K3
+    and K5 compute it -- and with expm1f, then its partials dG/d(d01),
+    dG/d(d10), dG/d(dxx) with expm1_acc -- K2's weights -- and dG/d(d01)
+    with expm1f).  Not a kernel of any path."""
     ic._check_cuda("expm1_probe", args)
     if args.ndim != 2 or args.shape[1] != 4:
         raise ValueError(f"expm1_probe: args of shape {tuple(args.shape)}")
     args = args.contiguous()
-    out = torch.empty_like(args)
+    out = torch.empty((args.shape[0], 8), dtype=args.dtype,
+                      device=args.device)
     ic._launch("gpsig_expm1_probe", 1, args.data_ptr(), out.data_ptr(),
                args.shape[0], ic._stream(args))
     return out
@@ -468,5 +459,5 @@ def fused_first_order_levels(X, X2=None, *, num_levels: int, base: str = "rbf",
     inc_cross, _ = gram.increment_gram_fns(base)
     level1 = gram.level1_exact_cross(inc_cross, X, X2).to(out.dtype)
     if symmetric:
-        level1 = _mirror(level1)
+        level1 = ic._mirror(level1)
     return torch.cat([out[:1], level1[None], out[2:]], dim=0)

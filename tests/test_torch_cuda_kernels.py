@@ -55,16 +55,20 @@ def _bound(out, ref):
     return float((out - ref).abs().max()) <= 1e-5 * scale
 
 
+@pytest.mark.parametrize("sym", [False, True])
 @pytest.mark.parametrize("base,inc", [("rbf", True), ("rbf", False),
                                       ("linear", True), ("linear", False)])
-def test_kzz_kernel_matches_plain(cuda, base, inc):
+def test_kzz_kernel_matches_plain(cuda, base, inc, sym):
     zz, _ = _inputs(cuda, base, inc)
     before = ic.kzz_fwd.launches
-    out = ic.kzz_fwd(*zz, num_levels=M_LVL, base=base, increments=inc)
+    out = ic.kzz_fwd(*zz, num_levels=M_LVL, base=base, increments=inc,
+                     symmetric=sym)
     torch.cuda.synchronize()
     assert ic.kzz_fwd.launches == before + 1
     assert _bound(out, ic.kzz_fwd_plain(*zz, num_levels=M_LVL, base=base,
-                                        increments=inc))
+                                        increments=inc, symmetric=sym))
+    if sym:
+        assert torch.equal(out, out.transpose(1, 2))
 
 
 @pytest.mark.parametrize("base,inc,diff", [
@@ -88,18 +92,46 @@ def _grads_close(out, ref):
         assert float((o - r).abs().max()) <= 1e-4 * scale
 
 
+@pytest.mark.parametrize("sym", [False, True])
 @pytest.mark.parametrize("base,inc", [("rbf", True), ("rbf", False),
                                       ("linear", True), ("linear", False)])
-def test_kzz_bwd_kernel_matches_plain(cuda, base, inc):
+def test_kzz_bwd_kernel_matches_plain(cuda, base, inc, sym):
     zz, _ = _inputs(cuda, base, inc)
     ct = torch.randn((M_LVL + 1, 37, 37), device=cuda,
                      generator=torch.Generator(cuda).manual_seed(1))
     before = ic.kzz_bwd.launches
-    out = ic.kzz_bwd(*zz, ct, num_levels=M_LVL, base=base, increments=inc)
+    out = ic.kzz_bwd(*zz, ct, num_levels=M_LVL, base=base, increments=inc,
+                     symmetric=sym)
     torch.cuda.synchronize()
     assert ic.kzz_bwd.launches == before + 1
     _grads_close(out, ic.kzz_bwd_plain(*zz, ct, num_levels=M_LVL, base=base,
-                                       increments=inc))
+                                       increments=inc, symmetric=sym))
+
+
+@pytest.mark.parametrize("sym", [False, True])
+def test_kzz_kernels_at_the_main_shape(cuda, sym):
+    """K1 and K2 at the main path's shape (500 inducing tensors, 4 levels,
+    d = 14) in both modes, against their f64 plain versions; K1's symmetric
+    output exactly symmetric; more than one range of strips for K2 at nZ =
+    1,100 (35 strips, 2 a range)."""
+    m = 4
+    lt = m * (m + 1) // 2
+    rng = np.random.RandomState(27)
+    for nz in (500, 1100):
+        Z = torch.as_tensor(rng.randn(lt, nz, 2, 14) * 0.3, device=cuda)
+        rows64 = (*ic._prep_tensors(Z, "rbf", True, lhs=True),
+                  *ic._prep_tensors(Z, "rbf", True, lhs=False))
+        rows = [t.float() for t in rows64]
+        ct64 = torch.as_tensor(rng.randn(m + 1, nz, nz), device=cuda)
+        kw = dict(num_levels=m, base="rbf", increments=True, symmetric=sym)
+        out = ic.kzz_fwd(*rows, **kw)
+        grads = ic.kzz_bwd(*rows, ct64.float(), **kw)
+        torch.cuda.synchronize()
+        if sym:
+            assert torch.equal(out, out.transpose(1, 2))
+        _fwd_close(out, ic.kzz_fwd_plain(*rows64, **kw))
+        _grads_close([g.double() for g in grads],
+                     ic.kzz_bwd_plain(*rows64, ct64, **kw))
 
 
 @pytest.mark.parametrize("base,inc,diff", [
@@ -325,7 +357,8 @@ def test_kzx_kernels_past_65535_examples(cuda):
 
 
 def _all_kernels_at(cuda, m):
-    """K1-K6 at m levels against their plain versions."""
+    """K1-K6 at m levels against their plain versions (K1 and K2 in both
+    modes)."""
     rng = np.random.RandomState(15)
     lt = m * (m + 1) // 2
     Z = torch.as_tensor(rng.randn(lt, 20, 2, 3) * 0.3, dtype=torch.float32,
@@ -337,13 +370,16 @@ def _all_kernels_at(cuda, m):
     zx = (*zz[:2], *ic._prep_seq(X, "rbf"))
     kw = dict(num_levels=m, base="rbf", increments=True)
     kwx = dict(kw, difference=True)
-    assert _bound(ic.kzz_fwd(*zz, **kw), ic.kzz_fwd_plain(*zz, **kw))
     assert _bound(ic.kzx_fwd(*zx, **kwx), ic.kzx_fwd_plain(*zx, **kwx))
     cz = torch.randn((m + 1, 20, 20), device=cuda,
                      generator=torch.Generator(cuda).manual_seed(16))
     cx = torch.randn((m + 1, 20, 4), device=cuda,
                      generator=torch.Generator(cuda).manual_seed(17))
-    _grads_close(ic.kzz_bwd(*zz, cz, **kw), ic.kzz_bwd_plain(*zz, cz, **kw))
+    for sym in (False, True):
+        kwz = dict(kw, symmetric=sym)
+        assert _bound(ic.kzz_fwd(*zz, **kwz), ic.kzz_fwd_plain(*zz, **kwz))
+        _grads_close(ic.kzz_bwd(*zz, cz, **kwz),
+                     ic.kzz_bwd_plain(*zz, cz, **kwz))
     _grads_close(ic.kzx_bwd(*zx, cx, **kwx),
                  ic.kzx_bwd_plain(*zx, cx, **kwx))
     rows = _long_rows(cuda, 5, 14, 3, 40, torch.float32)
@@ -364,15 +400,32 @@ def test_kernels_at_nine_levels(cuda):
 def test_kernels_at_ten_levels(cuda):
     """num_levels = 10: K3's eight range states no longer fit in shared
     memory beside the block's, so they are chained four at a time; K1-K6
-    against their plain versions.  Past 16 levels K3 raises, clearly."""
+    against their plain versions.  Past 16 levels K3 takes its serial
+    path."""
     _all_kernels_at(cuda, 10)
     m = 17
     _, zx = _inputs(cuda, "rbf", True, nz=4, n=2, L=5, d=2)
     zx = [t[:1].expand(m * (m + 1) // 2, *t.shape[1:]) if i < 2 else t
           for i, t in enumerate(zx)]
-    with pytest.raises(NotImplementedError, match="at most 16 levels"):
-        ic.kzx_fwd(*zx, num_levels=m, base="rbf", increments=True,
-                   difference=True)
+    kw = dict(num_levels=m, base="rbf", increments=True, difference=True)
+    assert _bound(ic.kzx_fwd(*zx, **kw), ic.kzx_fwd_plain(*zx, **kw))
+
+
+def test_kernels_at_seventeen_levels(cuda):
+    """num_levels = 17: K3 past its chained states (the serial path), K2
+    at d2 = 42 (past what a K2 holding a level's rows in shared memory
+    could take at that level count); K1-K6 against their plain versions."""
+    _all_kernels_at(cuda, 17)
+    m, lt = 17, 17 * 18 // 2
+    rng = np.random.RandomState(28)
+    Z = torch.as_tensor(rng.randn(lt, 20, 2, 40) * 0.15, dtype=torch.float32,
+                        device=cuda)
+    zz = (*ic._prep_tensors(Z, "rbf", True, lhs=True),
+          *ic._prep_tensors(Z, "rbf", True, lhs=False))
+    cz = torch.randn((m + 1, 20, 20), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(29))
+    kw = dict(num_levels=m, base="rbf", increments=True, symmetric=True)
+    _grads_close(ic.kzz_bwd(*zz, cz, **kw), ic.kzz_bwd_plain(*zz, cz, **kw))
 
 
 @pytest.mark.parametrize("T_in", [63, 64, 65, 127, 128, 129, 256, 257])
@@ -406,9 +459,8 @@ def _paths(rng, n, l, d, v, cuda):
 def test_kernels_at_pems_width(cuda):
     """PEMS's 963 features: K5 and K6 (inner rows past shared memory, read
     through L1) on the Kzz of length-5 inducing sequences and their Kzx
-    against 144-step data, and K1, K3, K4 on inducing tensors, against the
-    f64 plain versions.  K2 keeps a level's rows in shared memory and
-    raises at this width."""
+    against 144-step data, and K1-K4 on inducing tensors (K1 and K2 in both
+    modes), against the plain versions (K2 the f64 one)."""
     d, rng = 963, np.random.RandomState(21)
     v = rng.randn(d) / np.sqrt(d)
     Z, X = _paths(rng, 6, 5, d, v, cuda), _paths(rng, 3, 145, d, v, cuda)
@@ -430,7 +482,6 @@ def test_kernels_at_pems_width(cuda):
     zx = (*zz[:2], *ic._prep_seq(X, "rbf"))
     kw = dict(num_levels=M_LVL, base="rbf", increments=True)
     kwx = dict(kw, difference=True)
-    assert _bound(ic.kzz_fwd(*zz, **kw), ic.kzz_fwd_plain(*zz, **kw))
     assert _bound(ic.kzx_fwd(*zx, **kwx), ic.kzx_fwd_plain(*zx, **kwx))
     cx = torch.randn((M_LVL + 1, 20, 3), device=cuda,
                      generator=torch.Generator(cuda).manual_seed(23))
@@ -438,16 +489,21 @@ def test_kernels_at_pems_width(cuda):
                  ic.kzx_bwd_plain(*zx, cx, **kwx))
     cz = torch.randn((M_LVL + 1, 20, 20), device=cuda,
                      generator=torch.Generator(cuda).manual_seed(24))
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        ic.kzz_bwd(*zz, cz, **kw)
+    zz64 = [t.double() for t in zz]
+    for sym in (False, True):
+        kwz = dict(kw, symmetric=sym)
+        assert _bound(ic.kzz_fwd(*zz, **kwz), ic.kzz_fwd_plain(*zz, **kwz))
+        _grads_close([g.double() for g in ic.kzz_bwd(*zz, cz, **kwz)],
+                     ic.kzz_bwd_plain(*zz64, cz.double(), **kwz))
 
 
 def test_short_expm1_against_float64(cuda):
-    """common.cuh's expm1_acc, which K3 and K5 call in place of CUDA's
-    expm1f: within 5 ulp of float64 expm1 on a dense grid of [-1, 1], at
-    the switch at +-0.41 and near 0; and the rbf slot Gram exp(a)
+    """common.cuh's expm1_acc, which K1, K2, K3 and K5 call in place of
+    CUDA's expm1f: within 5 ulp of float64 expm1 on a dense grid of [-1,
+    1], at the switch at +-0.41 and near 0; and the rbf slot Gram exp(a)
     (expm1(d01 + d10 + dxx) - expm1(d01) - expm1(d10)), whose terms cancel,
-    within 16 float32 epsilons of the sum of its terms' magnitudes."""
+    and its partials (K2's weights), within 16 float32 epsilons of the sum
+    of their terms' magnitudes."""
     x = np.concatenate([np.linspace(-1, 1, 1 << 20),
                         0.41 + np.linspace(-1e-3, 1e-3, 1 << 12),
                         -0.41 + np.linspace(-1e-3, 1e-3, 1 << 12),
@@ -465,17 +521,37 @@ def test_short_expm1_against_float64(cuda):
     ulp = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
     assert float(np.max(np.abs(out[:len(x), 0] - want) / ulp)) <= 5
     a, d01, d10, dxx = combo.astype(np.float64).T
-    terms = [np.expm1(d01 + d10 + dxx), np.expm1(d01), np.expm1(d10)]
-    g = np.exp(a) * (terms[0] - terms[1] - terms[2])
-    unit = np.exp(a) * sum(np.abs(t) for t in terms) * 2.0 ** -23
-    assert float(np.max(np.abs(out[len(x):, 2] - g) / unit)) <= 16
+    es, e01, e10 = np.expm1(d01 + d10 + dxx), np.expm1(d01), np.expm1(d10)
+    ea, eps = np.exp(a), 2.0 ** -23
+    c = out[len(x):]
+    # the partials' terms include those of s = d01 + d10 + dxx, summed in
+    # float32 (chip_smoke.expm1_checks)
+    s_terms = np.exp(d01 + d10 + dxx) * (np.abs(d01) + np.abs(d10)
+                                         + np.abs(dxx))
+    for col, value, terms in (
+            (2, es - e01 - e10, np.abs(es) + np.abs(e01) + np.abs(e10)),
+            (4, es - e01, np.abs(es) + np.abs(e01) + s_terms),
+            (5, es - e10, np.abs(es) + np.abs(e10) + s_terms),
+            (6, es + 1.0, np.abs(es) + 1.0 + s_terms)):
+        assert float(np.max(np.abs(c[:, col] - ea * value)
+                            / (ea * terms * eps))) <= 16
 
 
-@pytest.mark.parametrize("kernel", ["kzx_bwd", "seq_bwd", "seq_bwd_chunks"])
+@pytest.mark.parametrize("kernel", ["kzx_bwd", "seq_bwd", "seq_bwd_chunks",
+                                    "kzz_bwd"])
 def test_backward_kernels_are_deterministic(cuda, kernel):
     """Two launches on the same inputs give bit-identical gradients (K6 also
-    on pairs whose inner side spans three chunks)."""
-    if kernel == "kzx_bwd":
+    on pairs whose inner side spans three chunks; K2 in symmetric mode with
+    more than one range of strips)."""
+    if kernel == "kzz_bwd":
+        zz, _ = _inputs(cuda, "rbf", True, nz=1100)
+        ct = torch.randn((M_LVL + 1, 1100, 1100), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(9))
+
+        def run():
+            return ic.kzz_bwd(*zz, ct, num_levels=M_LVL, base="rbf",
+                              increments=True, symmetric=True)
+    elif kernel == "kzx_bwd":
         _, zx = _inputs(cuda, "rbf", True, nz=70, n=5, L=40)
         ct = torch.randn((M_LVL + 1, 70, 5), device=cuda,
                          generator=torch.Generator(cuda).manual_seed(9))

@@ -81,7 +81,7 @@ def test_kzz_plain_and_wrapper(base, inc, dtype):
     Vl, Dl = ic._prep_tensors(Zt, base, inc, lhs=True)
     Vr, Dr = ic._prep_tensors(Zt, base, inc, lhs=False)
     plain = ic.kzz_fwd_plain(Vl, Dl, Vr, Dr, num_levels=M_LVL, base=base,
-                             increments=inc)
+                             increments=inc, symmetric=True)
     assert torch.equal(plain, out)
 
 
