@@ -111,16 +111,17 @@ seq_fwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
   const int W = G * CPL;
   const int xs = REG ? kRegD2 : (d2 + 3) & ~3;  // channels of a staged row
 
-  // shared memory: outer rows [rc][2][xs] (o_smem), then the row carries
-  // where they fit ([kWarps][2][To][M-1][P]), then (not REG, in_smem) the
-  // inner rows [kWarps][2][d2][32]
+  // shared memory: outer rows [rc][2][xs] (o_smem), then, with chunks, the
+  // row carries where they fit ([kWarps][2][To][M-1][P]), then (not REG,
+  // in_smem) the inner rows [kWarps][2][d2][32].  One chunk has no carries
+  // and the launcher sizes no room for them.
   float* s_o = smem;
   float* s_c = s_o + (o_smem ? rc * 2 * xs : 0);
   const size_t carry_warp = 2 * static_cast<size_t>(To) * (M - 1) * P;
   float* carry = (carry_smem ? s_c : gcarry +
                   static_cast<size_t>(blockIdx.x) * kWarps * carry_warp) +
                  warp * carry_warp;
-  float* s_in = s_c + (carry_smem ? kWarps * carry_warp : 0) +
+  float* s_in = s_c + (chunked && carry_smem ? kWarps * carry_warp : 0) +
                 warp * 2 * d2 * 32;
   // row carry of level k + 1 at row s, buffer `par` (chunk parity)
   auto carry_at = [&](int par, int s, int k) {

@@ -20,16 +20,19 @@ float32":
 
 No fallback is silent: the kernels take any sequence lengths, any feature
 width and any number of levels (K3 past 16 levels on a slower serial
-path).  Kzz of inducing tensors runs K1 and K2 in symmetric mode: each
-unordered pair once, mirrored, so it is exactly symmetric.  Without
-``difference`` the seq x seq Gram takes the reference graph, as the JAX
-package does.  The Kxx-diagonal leg keeps JAX's ``_closed_form_fns``
-dispatch: cancellation-free closed forms at f32, the naive graph at f64 or
-under ``'off'``.
+path).  With ``num_lags`` the sequences are lag-augmented
+(``ops/lags.py``) and each of the ``num_lags + 1`` channel groups is
+divided by the lengthscales and weighted by ``gamma``; the kernels take the
+``(num_lags + 1) * d`` features unchanged.  Kzz of inducing tensors runs
+K1 and K2 in symmetric mode: each unordered pair once, mirrored, so it is
+exactly symmetric.  Without ``difference`` the seq x seq Gram takes the
+reference graph, as the JAX package does.  The Kxx-diagonal leg keeps
+JAX's ``_closed_form_fns`` dispatch: cancellation-free closed forms at
+f32, the naive graph at f64 or under ``'off'``.
 
-Outside the port so far -- ``order > 1``, lags, low-rank features,
-``K_blocked`` and the public ``K_tens`` / ``K_tens_vs_seq`` -- the module
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+Outside the port so far -- ``order > 1``, low-rank features, ``K_blocked``
+and the public ``K_tens`` / ``K_tens_vs_seq`` -- the module raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from torch import nn
 
 from . import config as cfg
 from . import params as pm
-from .ops import base_kernels, gram
+from .ops import base_kernels, gram, lags
 from .ops import inducing_cuda as ic
 from .ops import signature as sig_ops
 from .ops import signature_cuda as sc
@@ -85,9 +88,12 @@ class SignatureKernel(nn.Module):
         if self.order != 1:
             raise NotImplementedError(
                 "order > 1 is not ported yet: ROADMAP Queue 1, item 6")
-        if num_lags:
-            raise NotImplementedError(
-                "lags are not ported yet: ROADMAP Queue 1, item 5")
+        if num_lags is None:
+            self.num_lags = 0
+        elif isinstance(num_lags, (int, np.integer)) and num_lags >= 0:
+            self.num_lags = int(num_lags)
+        else:
+            raise ValueError("num_lags must be a nonnegative integer or None")
         if low_rank:
             raise NotImplementedError(
                 "low-rank features are not ported yet: ROADMAP Queue 1, "
@@ -112,6 +118,9 @@ class SignatureKernel(nn.Module):
                                           "sigma": "positive"}
         if self._init_lengthscales is not None:
             self.bijectors["lengthscales"] = "positive"
+        if self.num_lags > 0:
+            self.bijectors["lags"] = "sigmoid"
+            self.bijectors["gamma"] = "positive"
         _, base_bij = base_kernels.init_params(self.base)
         self.bijectors.update(base_bij)
         for name, raw in self.init_params(dtype, device).items():
@@ -134,6 +143,12 @@ class SignatureKernel(nn.Module):
         if self._init_lengthscales is not None:
             raw["lengthscales"] = pm.raw_init(self._init_lengthscales,
                                               "positive", dtype, device)
+        if self.num_lags > 0:
+            gamma = 1.0 / np.arange(1, self.num_lags + 2)
+            raw["lags"] = pm.raw_init(0.1 * np.arange(1, self.num_lags + 1),
+                                      "sigmoid", dtype, device)
+            raw["gamma"] = pm.raw_init(gamma / gamma.sum(), "positive", dtype,
+                                       device)
         base_raw, _ = base_kernels.init_params(self.base, dtype=dtype,
                                                device=device)
         raw.update(base_raw)
@@ -150,18 +165,34 @@ class SignatureKernel(nn.Module):
         return lambda A, B=None: fn(cp, A, B)
 
     # ------------------------------------------------------------------
-    # scaling
+    # scaling and lags (``gpsig_tpu/kernels.py:228-252``)
     # ------------------------------------------------------------------
 
-    def _scale_sequences(self, cp: dict, X):
+    def _scale_groups(self, cp: dict, X):
+        """Divide each of the ``num_lags + 1`` channel groups on the
+        second-to-last axis by the lengthscales and weight it by gamma."""
         if "lengthscales" in cp:
             X = X / cp["lengthscales"].to(X.dtype)
+        if self.num_lags > 0:
+            X = X * cp["gamma"].to(X.dtype)[:, None]
         return X
 
+    def _scale_sequences(self, cp: dict, X):
+        """(N, L, d) -> (N, L, (num_lags+1)*d) scaled, lag-augmented."""
+        N, L, _ = X.shape
+        if self.num_lags > 0:
+            X = lags.add_lags_to_sequences(X, cp["lags"].to(X.dtype))
+        else:
+            X = X[:, :, None, :]
+        return self._scale_groups(cp, X).reshape(
+            N, L, (self.num_lags + 1) * self.num_features)
+
     def _scale_tensors(self, cp: dict, Z):
-        if "lengthscales" in cp:
-            Z = Z / cp["lengthscales"].to(Z.dtype)
-        return Z
+        """Scale packed inducing tensors (lt, n_Z, [2,] (num_lags+1)*d)
+        group by group."""
+        shape = Z.shape
+        Z = Z.reshape(*shape[:-1], self.num_lags + 1, self.num_features)
+        return self._scale_groups(cp, Z).reshape(shape)
 
     # ------------------------------------------------------------------
     # unnormalized level computations

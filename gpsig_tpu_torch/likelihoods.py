@@ -1,11 +1,18 @@
-"""MultiClass likelihood with the RobustMax inverse link
-(``gpsig_tpu/likelihoods.py::MultiClass``), for prediction and training.
+"""Likelihoods for classification (``gpsig_tpu/likelihoods.py``), for
+prediction and training: the reference recipe takes ``Bernoulli`` for two
+classes and ``MultiClass`` otherwise (``train_gpsig.py:90-95``).
 
-p(y=c|f) = 1-eps if c == argmax(f) else eps/(C-1); p(argmax f = c) is
-evaluated by 1-D Gauss-Hermite quadrature over the candidate latent, with
-100 points by default (the JAX package's documented divergence from
-GPflow's 20).  Labels ``Y`` are ``(N, 1)`` class indices.  The Gaussian and
-Bernoulli likelihoods are not ported yet (ROADMAP Queue 1, item 6).
+* ``Bernoulli``: the probit inverse link clipped away from {0, 1} by 1e-3
+  (GPflow's), one latent; ``variational_expectations`` by 20-point
+  Gauss-Hermite quadrature, predictions in closed form.  Labels ``Y`` are
+  ``(N, 1)`` in {0, 1}.
+* ``MultiClass``: RobustMax, p(y=c|f) = 1-eps if c == argmax(f) else
+  eps/(C-1); p(argmax f = c) by 1-D Gauss-Hermite quadrature over the
+  candidate latent, with 100 points by default (the JAX package's
+  documented divergence from GPflow's 20).  Labels ``Y`` are ``(N, 1)``
+  class indices.
+
+The Gaussian likelihood is not ported yet (ROADMAP Queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -25,6 +32,39 @@ def _gh_points(n: int, dtype, device):
 
 def _normal_cdf(x):
     return 0.5 * (1.0 + torch.special.erf(x / math.sqrt(2.0)))
+
+
+class Bernoulli(nn.Module):
+    """Bernoulli likelihood with the probit inverse link."""
+
+    def __init__(self, num_gh: int = 20):
+        super().__init__()
+        self.num_gh = int(num_gh)
+        self.num_latent = 1
+
+    @staticmethod
+    def _invlink(F):
+        return _normal_cdf(F) * (1.0 - 2e-3) + 1e-3
+
+    @staticmethod
+    def _log_bernoulli(p, Y):
+        return torch.where(Y > 0.5, torch.log(p), torch.log1p(-p))
+
+    def variational_expectations(self, Fmu, Fvar, Y):
+        """(N, 1) E_q[log p(y|f)], f = mu + sqrt(2 var) x at the GH points."""
+        x, w = _gh_points(self.num_gh, Fmu.dtype, Fmu.device)
+        F = Fmu[..., None] + torch.sqrt(2.0 * Fvar[..., None]) * x
+        lp = self._log_bernoulli(self._invlink(F), Y[..., None])
+        return torch.sum(lp * w, dim=-1) / math.sqrt(math.pi)
+
+    def predict_mean_and_var(self, Fmu, Fvar):
+        p = self._invlink(Fmu / torch.sqrt(1.0 + Fvar))
+        return p, p - torch.square(p)
+
+    def predict_log_density(self, Fmu, Fvar, Y):
+        """(N,) log p(y*|x*) under the predictive."""
+        p, _ = self.predict_mean_and_var(Fmu, Fvar)
+        return torch.sum(self._log_bernoulli(p, Y), dim=-1)
 
 
 class MultiClass(nn.Module):

@@ -3,8 +3,8 @@
 The port of ``gpsig_tpu/models/svgp.py``.  Parameters live on the
 submodules under the JAX pytree's names::
 
-    kern.{variances, sigma, lengthscales}   ind.{Z, [W]}
-    q_mu (M, P)                             q_sqrt (P, M, M), or (M, P) if q_diag
+    kern.{variances, sigma, lengthscales, [lags, gamma]}   ind.{Z, [W]}
+    q_mu (M, P)            q_sqrt (P, M, M), or (M, P) if q_diag
 
 ``ind`` is an ``InducingTensors`` or an ``InducingSequences``.  ``loss``
 (the negative ELBO) is what ``training.optimize`` minimizes; its gradients

@@ -3,12 +3,16 @@
 The port of ``gpsig_tpu/serving.py::Predictor`` with the same bucket
 policy.  A request of n sequences of length l runs on the smallest batch
 bucket >= n and the smallest length bucket >= l, so a server sees a small
-fixed set of shapes.  Padding is exact, not approximate:
+fixed set of shapes.  Padding:
 
 * time axis: repeating the last observation appends zero increments, which
-  the signature recursions ignore exactly;
+  the signature recursions ignore exactly -- without lags.  With
+  ``num_lags`` the lagged copies are interpolated on the grid
+  ``arange(L) / (L - 1)`` of the padded length (``ops/lags.py``), so a
+  padded request gets other lagged features than the same request unpadded
+  and its prediction differs; the JAX ``Predictor`` behaves the same way;
 * batch axis: SVGP prediction is row-independent, so rows padded with
-  copies of the last example are sliced away.
+  copies of the last example are sliced away exactly.
 
 Prediction runs under ``torch.inference_mode()`` on the device the
 Predictor was given.  ``export_predict`` / ``save_exported`` /

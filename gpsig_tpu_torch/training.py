@@ -13,10 +13,11 @@ The port of ``gpsig_tpu/training.py``.  What differs from the JAX package:
   snapshot are parameter trees in the JAX layout (``convert.to_numpy_tree``);
 * parameters are selected by their ``/``-joined JAX names (``kern/variances``,
   ``ind/Z``, ``q_sqrt``; ``convert.named_leaves``).  A frozen leaf gets no
-  update and no optimizer moments, as under ``optax.masked``.
-
-Checkpoint and resume (``checkpoint_path``, ``resume_from``) wait for
-``checkpoint.py`` (ROADMAP Queue 1, item 6).
+  update and no optimizer moments, as under ``optax.masked``;
+* a checkpoint (``checkpoint.py``) holds the JAX package's state layout, with
+  each optimizer's state keyed by leaf name (``{name: {count, mu, nu}}`` for
+  ``NAdam``, whose state exists from its construction so that the layout
+  does not change at the first step).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from . import checkpoint as ckpt
 from . import config as cfg
 from . import convert
 
@@ -47,6 +49,10 @@ class NAdam(torch.optim.Optimizer):
     def __init__(self, params, lr: float = 1e-3, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p] = {"count": 0, "mu": torch.zeros_like(p),
+                                 "nu": torch.zeros_like(p)}
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -57,10 +63,6 @@ class NAdam(torch.optim.Optimizer):
             for p in group["params"]:
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
                 state = self.state[p]
-                if not state:
-                    state["count"] = 0
-                    state["mu"] = torch.zeros_like(p)
-                    state["nu"] = torch.zeros_like(p)
                 t = state["count"] + 1
                 mu, nu = state["mu"], state["nu"]
                 mu.mul_(b1).add_(g, alpha=1.0 - b1)
@@ -205,6 +207,28 @@ class BatchIterator:
         self.stream.set_state(state)
 
 
+def _opt_state(optimizers, names) -> list:
+    """Each optimizer's per-parameter state, keyed by leaf name."""
+    return [{names[id(p)]: dict(o.state[p])
+             for g in o.param_groups for p in g["params"]}
+            for o in optimizers]
+
+
+def _load_opt_state(optimizers, names, saved) -> None:
+    for o, state in zip(optimizers, saved):
+        for g in o.param_groups:
+            for p in g["params"]:
+                st = dict(state[names[id(p)]])
+                for k, v in st.items():
+                    if isinstance(v, torch.Tensor):
+                        if v.shape != p.shape:
+                            raise ValueError(
+                                f"{names[id(p)]}/{k}: shape {tuple(v.shape)}"
+                                f" != {tuple(p.shape)}")
+                        st[k] = v.to(device=p.device, dtype=p.dtype)
+                o.state[p] = st
+
+
 def optimize(loss_fn, model, opt, *, max_iter: int, data_iter=None,
              trainable: Callable[[str], bool] | None = None,
              val_scorer=None, lower_is_better: bool = False,
@@ -224,24 +248,32 @@ def optimize(loss_fn, model, opt, *, max_iter: int, data_iter=None,
         several optimizers (first match wins, unmatched frozen).
       max_iter: number of steps in this phase.
       data_iter: iterator of batch tuples passed to ``loss_fn``; if None,
-        ``loss_fn(model)`` runs full-batch.
+        ``loss_fn(model)`` runs full-batch.  One with ``state()`` /
+        ``set_state()`` (``BatchIterator``) has its position checkpointed
+        and restored.
       trainable: predicate over parameter names; False leaves are frozen.
       val_scorer: ``val_scorer(model) -> score`` or a list of scores (the
         last one is used for best/patience), evaluated every ``save_freq``
         steps.
       history: resumable history dict keyed by iteration.
       save_params_history: record the parameter tree at every snapshot.
-      checkpoint_path, checkpoint_extra, resume_from: not ported yet.
+      checkpoint_path: optional file; the training state -- parameters,
+        optimizer state, iteration, phase start, data-stream position,
+        best-on-val snapshot, early-stop flag and ``checkpoint_extra`` --
+        is saved there atomically every ``save_freq`` steps and at the
+        phase's end.  The optimizers' state must exist from their
+        construction, as ``NAdam``'s does.
+      checkpoint_extra: a small tree stored alongside (a phase id).
+      resume_from: a checkpoint written by an earlier (killed) run of this
+        phase; restores all of the above and continues to the phase's
+        original end.  The resumed run is bit-identical to the
+        uninterrupted one, its best snapshot and early stop included; a
+        run that had stopped early trains no further.
 
     Returns the updated history; ``history['final_params']`` holds the
     last parameters and ``history['best']['params']`` the best on
     validation, as JAX-layout trees.
     """
-    if checkpoint_path is not None or resume_from is not None:
-        raise NotImplementedError(
-            "checkpoint/resume is not ported yet: ROADMAP Queue 1, item 6 "
-            "(checkpoint.py)")
-    del checkpoint_extra
     if history is None:
         history = {}
     numeric_iters = [k for k in history if isinstance(k, int)]
@@ -251,11 +283,82 @@ def optimize(loss_fn, model, opt, *, max_iter: int, data_iter=None,
     mask = path_mask(model, trainable or (lambda _: True))
     pairs = opt if isinstance(opt, list) else [(opt, lambda _: True)]
     optimizers = multi_optimizer(pairs, model, mask)
+    names = {id(p): n for n, p in convert.named_leaves(model).items()}
+    has_stream_state = data_iter is not None and hasattr(data_iter, "state")
     best = history.get("best")
     stopped_early = False
-    t0 = time.time()
 
-    for it in range(start_iter + 1, start_iter + max_iter + 1):
+    def _best_state():
+        """best-on-validation in a fixed layout (a parameter-shaped
+        placeholder before there is one)."""
+        if best is None:
+            return {"has_best": np.asarray(0), "iter": np.asarray(0),
+                    "time": np.asarray(0.0), "elbo": np.asarray(0.0),
+                    "val_score": np.asarray(0.0),
+                    "val": np.zeros(0, np.float64),
+                    "val_is_seq": np.asarray(0),
+                    "params": convert.to_numpy_tree(model)}
+        scores = best["val"]
+        is_seq = isinstance(scores, (list, tuple))
+        return {"has_best": np.asarray(1), "iter": np.asarray(best["iter"]),
+                "time": np.asarray(float(best["time"])),
+                "elbo": np.asarray(float(best["elbo"])),
+                "val_score": np.asarray(float(best["val_score"])),
+                "val": np.asarray(scores if is_seq else [scores], np.float64),
+                "val_is_seq": np.asarray(int(is_seq)),
+                "params": best["params"]}
+
+    def _ckpt_state(it):
+        state = {"params": convert.to_numpy_tree(model),
+                 "opt_state": _opt_state(optimizers, names),
+                 "iter": np.asarray(it),
+                 # the phase still ends at phase_start + max_iter when the
+                 # history dict is lost
+                 "phase_start": np.asarray(start_iter),
+                 "best": _best_state(),
+                 "stopped_early": np.asarray(int(stopped_early))}
+        if has_stream_state:
+            state["data_state"] = data_iter.state()
+        if checkpoint_extra is not None:
+            state["extra"] = checkpoint_extra
+        return state
+
+    resume_iter = start_iter
+    if resume_from is not None and ckpt.exists(resume_from):
+        try:
+            # fill_missing: files without the best/early-stop fields resume
+            # with those at their defaults
+            restored = ckpt.restore(resume_from, like=_ckpt_state(0),
+                                    fill_missing=True)
+            convert.load_jax_params(model, restored["params"])
+            _load_opt_state(optimizers, names, restored["opt_state"])
+        except (ValueError, KeyError, TypeError) as e:
+            raise ValueError(
+                f"checkpoint {resume_from} is incompatible with this build "
+                "(its state tree does not match the current model/optimizer "
+                "structure); delete it to start the phase fresh. Underlying "
+                f"error: {e}") from e
+        resume_iter = int(restored["iter"])
+        start_iter = int(restored["phase_start"])
+        if has_stream_state:
+            data_iter.set_state(restored["data_state"])
+        rb = restored["best"]
+        if int(rb["has_best"]):
+            scores = [float(v) for v in np.asarray(rb["val"])]
+            best = {"iter": int(rb["iter"]), "time": float(rb["time"]),
+                    "elbo": float(rb["elbo"]),
+                    "val": scores if int(rb["val_is_seq"]) else scores[0],
+                    "val_score": float(rb["val_score"]),
+                    "params": rb["params"]}
+            history["best"] = best
+        if int(restored["stopped_early"]):
+            # the killed run had already stopped early: train no further
+            stopped_early = True
+            resume_iter = start_iter + max_iter
+        log_fn(f"resumed from {resume_from} at iter {resume_iter}")
+
+    t0 = time.time()
+    for it in range(resume_iter + 1, start_iter + max_iter + 1):
         batch = next(data_iter) if data_iter is not None else ()
         model.zero_grad(set_to_none=True)
         loss = loss_fn(model, *batch)
@@ -298,6 +401,10 @@ def optimize(loss_fn, model, opt, *, max_iter: int, data_iter=None,
                                "stopping early")
                         stopped_early = True
             history[it] = rec
+            # after the best/patience updates, so that the checkpoint of the
+            # stopping iteration carries the tripped stop and the new best
+            if checkpoint_path is not None:
+                ckpt.save(checkpoint_path, _ckpt_state(it))
         if stopped_early:
             break
 

@@ -109,8 +109,6 @@ def test_outside_the_slice_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.kernels.SignatureRBF(D, M, order=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.kernels.SignatureRBF(D, M, num_lags=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.kernels.SignatureRBF(D, M, low_rank=True)
     _, _, tmodel, Xq = _setup(np.float64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
