@@ -2,9 +2,11 @@
 // slot-Gram algebra of gpsig_tpu/ops/inducing_pallas.py (_slot_gram_zz :153,
 // _slot_gram_zz_bwd :175, _slot_gram_zx :554, _slot_gram_zx_bwd :604) on
 // norm-augmented value/difference vectors, for kzz_fwd.cu, kzz_bwd.cu,
-// kzx_fwd.cu and kzx_bwd.cu; the Kzz tiles K1 and K2 share; the group
-// scans of the seq x seq backward seq_bwd.cu; and the level switch every
-// launcher ends in.
+// kzx_fwd.cu and kzx_bwd.cu, with the matern12 base's closed forms
+// (gpsig_tpu/ops/gram.py mat12_*_from_dots :279-350) and their partials
+// written out; the Kzz tiles K1 and K2 share; the group scans of the
+// seq x seq backward seq_bwd.cu; and the level switch every launcher ends
+// in.
 //
 // Transcendentals: CUDA's accurate expf (max 2 ulp) and expm1f (max 1
 // ulp), never the __expf intrinsic -- the library is built without
@@ -49,8 +51,11 @@ __device__ __forceinline__ float slot_expm1(float x) {
 }
 
 // Base kernels the hand kernels cover; the values match
-// gpsig_tpu_torch/ops/inducing_cuda.py::_BASE_IDS.
-enum Base : int { kRbf = 0, kLinear = 1 };
+// gpsig_tpu_torch/ops/inducing_cuda.py::_BASE_IDS.  Every kernel takes
+// matern12 as a compile-time instance of its own (template flag M12): its
+// closed form needs the step norms and six partials, and the rbf/linear
+// instances keep their registers.
+enum Base : int { kRbf = 0, kLinear = 1, kMatern12 = 2 };
 
 // Signature levels the main library is instantiated for (level loops and
 // the per-thread recursion state are unrolled at compile time).  A call
@@ -58,6 +63,157 @@ enum Base : int { kRbf = 0, kLinear = 1 };
 // with -DGPSIG_EXTRA_LEVELS=M, which holds the instances for that M only
 // (ops/_cuda_build.py; GPSIG_SWITCH_LEVELS below).
 constexpr int kMaxLevels = 8;
+
+// A launcher's check of its base: one the kernels cover, and with
+// matern12 the two step-norm arrays it reads.
+inline bool base_ok(int base, const float* n1, const float* n2) {
+  if (base == kMatern12) return n1 != nullptr && n2 != nullptr;
+  return base == kRbf || base == kLinear;
+}
+
+// ---------------------------------------------------------------------------
+// matern12, exp(-r): the corner-distance algebra of
+// gpsig_tpu/ops/gram.py::radius_gaps_from_dots (:279) on the augmented dots
+// (a00 = -r00^2/2, d01 / d10 the one-step gaps, dxx = <dx, dy>) and the
+// step norms nx, ny of the true channels as triangle-inequality floors:
+//   g01 = -2 d01 / (r01 + r00),  g10 = -2 d10 / (r10 + r00),
+//   u = 2 (d01 + dxx) / (r10 + r11) + 2 d01 / (r00 + r01),
+//   delta = -2 dxx / (r11 + r01) - 2 d10 u / ((r11 + r01) (r10 + r00)),
+//   M = exp(-r00) (exp(-(g01 + g10)) expm1(-delta) + expm1(-g01) expm1(-g10))
+// with every denominator max(den, max(norm, 1e-30)) and every radius
+// sqrt(max(r00^2 + s, 1e-36)) -- the JAX floors, exactly.  The partials are
+// the reverse sweep written out (the same formulas as
+// ops/gram.py::mat12_cross_partials); a tie of a max splits its gradient in
+// halves, as JAX's VJP does (a00 = 0 exactly at some Kzz self-pairs).
+// ---------------------------------------------------------------------------
+
+constexpr float kTinySq = 1e-36f;   // radius guard, a normal float
+constexpr float kTinyDen = 1e-30f;  // denominator floor
+
+// Weight of a in max(a, b)'s gradient: 1 where it wins, 1/2 at a tie.
+__device__ __forceinline__ float max_w(float a, float b) {
+  return a > b ? 1.f : (a == b ? 0.5f : 0.f);
+}
+
+template <bool SHORT>
+__device__ __forceinline__ float mat12_cross(float a00, float d01, float d10,
+                                             float dxx, float nx, float ny) {
+  const float r00sq = fmaxf(-2.f * a00, 0.f);
+  const float r00 = sqrtf(fmaxf(r00sq, kTinySq));
+  const float r01 = sqrtf(fmaxf(r00sq + -2.f * d01, kTinySq));
+  const float r10 = sqrtf(fmaxf(r00sq + -2.f * d10, kTinySq));
+  const float r11 = sqrtf(fmaxf(r00sq + -2.f * (d01 + d10 + dxx), kTinySq));
+  const float fx = fmaxf(nx, kTinyDen), fy = fmaxf(ny, kTinyDen);
+  const float D1 = fmaxf(r01 + r00, fy), D2 = fmaxf(r10 + r00, fx);
+  const float D3 = fmaxf(r10 + r11, fy), D5 = fmaxf(r11 + r01, fx);
+  const float g01 = -2.f * d01 / D1, g10 = -2.f * d10 / D2;
+  const float u = 2.f * (d01 + dxx) / D3 + 2.f * d01 / D1;
+  const float delta = -2.f * dxx / D5 - 2.f * d10 / D2 * (u / D5);
+  return expf(-r00) * (expf(-(g01 + g10)) * slot_expm1<SHORT>(-delta) +
+                       slot_expm1<SHORT>(-g01) * slot_expm1<SHORT>(-g10));
+}
+
+// mat12_cross and p = dM/d(a00, d01, d10, dxx, nx, ny).  Returns M.
+template <bool SHORT>
+__device__ __forceinline__ float mat12_cross_partials(
+    float a00, float d01, float d10, float dxx, float nx, float ny,
+    float (&p)[6]) {
+  const float x0 = -2.f * a00, r00sq = fmaxf(x0, 0.f);
+  const float s01 = r00sq + -2.f * d01, s10 = r00sq + -2.f * d10;
+  const float s11 = r00sq + -2.f * (d01 + d10 + dxx);
+  const float r00 = sqrtf(fmaxf(r00sq, kTinySq));
+  const float r01 = sqrtf(fmaxf(s01, kTinySq));
+  const float r10 = sqrtf(fmaxf(s10, kTinySq));
+  const float r11 = sqrtf(fmaxf(s11, kTinySq));
+  const float fx = fmaxf(nx, kTinyDen), fy = fmaxf(ny, kTinyDen);
+  const float n1 = r01 + r00, n2 = r10 + r00, n3 = r10 + r11, n5 = r11 + r01;
+  const float D1 = fmaxf(n1, fy), D2 = fmaxf(n2, fx);
+  const float D3 = fmaxf(n3, fy), D5 = fmaxf(n5, fx);
+  const float g01 = -2.f * d01 / D1, q2 = 2.f * d10 / D2;
+  const float g10 = -2.f * d10 / D2;
+  const float ua = 2.f * (d01 + dxx) / D3, ub = 2.f * d01 / D1;
+  const float u = ua + ub;
+  const float qd1 = -2.f * dxx / D5, qu = u / D5;
+  const float delta = qd1 - q2 * qu;
+  const float E0 = expf(-r00), eg = expf(-(g01 + g10));
+  const float em_d = slot_expm1<SHORT>(-delta);
+  const float e1 = slot_expm1<SHORT>(-g01), e2 = slot_expm1<SHORT>(-g10);
+  const float M = E0 * (eg * em_d + e1 * e2);
+  // dM/d(g01, g10, delta); dM/dr00 has M's own -M
+  const float Gg01 = -E0 * (eg * em_d + (e1 + 1.f) * e2);
+  const float Gg10 = -E0 * (eg * em_d + (e2 + 1.f) * e1);
+  const float Gd = -E0 * eg * (em_d + 1.f);
+  const float dq2 = -Gd * qu, dqu = -Gd * q2;  // delta = qd1 - q2 qu
+  const float du = dqu / D5;
+  const float dD5 = -(dqu * qu + Gd * qd1) / D5;
+  const float dD3 = -du * ua / D3;
+  const float dD1 = -(du * ub + Gg01 * g01) / D1;
+  const float dD2 = -(Gg10 * g10 + dq2 * q2) / D2;
+  const float dd01 = 2.f * du / D3 + (2.f * du - 2.f * Gg01) / D1;
+  const float dd10 = (2.f * dq2 - 2.f * Gg10) / D2;
+  const float ddxx = 2.f * du / D3 - 2.f * Gd / D5;
+  // denominators: to the radii where the sum wins, to the floors else
+  const float w1 = max_w(n1, fy), w2 = max_w(n2, fx);
+  const float w3 = max_w(n3, fy), w5 = max_w(n5, fx);
+  const float dr00 = -M + dD1 * w1 + dD2 * w2;
+  const float dr01 = dD1 * w1 + dD5 * w5;
+  const float dr10 = dD2 * w2 + dD3 * w3;
+  const float dr11 = dD3 * w3 + dD5 * w5;
+  const float dfx = dD2 * max_w(fx, n2) + dD5 * max_w(fx, n5);
+  const float dfy = dD1 * max_w(fy, n1) + dD3 * max_w(fy, n3);
+  // radii r = sqrt(max(s, 1e-36))
+  const float ds00 = dr00 * 0.5f / r00 * max_w(r00sq, kTinySq);
+  const float ds01 = dr01 * 0.5f / r01 * max_w(s01, kTinySq);
+  const float ds10 = dr10 * 0.5f / r10 * max_w(s10, kTinySq);
+  const float ds11 = dr11 * 0.5f / r11 * max_w(s11, kTinySq);
+  p[0] = -2.f * (ds00 + ds01 + ds10 + ds11) * max_w(x0, 0.f);
+  p[1] = dd01 - 2.f * (ds01 + ds11);
+  p[2] = dd10 - 2.f * (ds10 + ds11);
+  p[3] = ddxx - 2.f * ds11;
+  p[4] = dfx * max_w(nx, kTinyDen);
+  p[5] = dfy * max_w(ny, kTinyDen);
+  return M;
+}
+
+// One-sided matern12 difference k(x', y) - k(x, y) = exp(-r00)
+// expm1(-g10) (gram.py::mat12_onesided_from_dots :332) and, with `p`, its
+// partials dM/d(a00, d10, nx).
+template <bool SHORT, bool PARTIALS = false>
+__device__ __forceinline__ float mat12_onesided(float a00, float d10,
+                                                float nx, float* p = nullptr) {
+  const float x0 = -2.f * a00, r00sq = fmaxf(x0, 0.f);
+  const float s10 = r00sq - 2.f * d10;
+  const float r00 = sqrtf(fmaxf(r00sq, kTinySq));
+  const float r10 = sqrtf(fmaxf(s10, kTinySq));
+  const float fx = fmaxf(nx, kTinyDen), n2 = r10 + r00;
+  const float D2 = fmaxf(n2, fx);
+  const float g10 = -2.f * d10 / D2;
+  const float E0 = expf(-r00), e2 = slot_expm1<SHORT>(-g10);
+  const float M = E0 * e2;
+  if (PARTIALS) {
+    const float Gg10 = -E0 * (e2 + 1.f);
+    const float dD2 = -Gg10 * g10 / D2;
+    const float w2 = max_w(n2, fx);
+    const float ds10 = dD2 * w2 * 0.5f / r10 * max_w(s10, kTinySq);
+    const float ds00 = (dD2 * w2 - M) * 0.5f / r00 * max_w(r00sq, kTinySq);
+    p[0] = -2.f * (ds00 + ds10) * max_w(x0, 0.f);
+    p[1] = -2.f * Gg10 / D2 - 2.f * ds10;
+    p[2] = dD2 * max_w(fx, n2) * max_w(nx, kTinyDen);
+  }
+  return M;
+}
+
+// Plain matern12 Gram entry exp(-r00) (gram.py::mat12_plain_from_dots
+// :346) and, with `p`, dM/da00.
+template <bool PARTIALS = false>
+__device__ __forceinline__ float mat12_plain(float a00, float* p = nullptr) {
+  const float x0 = -2.f * a00, r00sq = fmaxf(x0, 0.f);
+  const float r00 = sqrtf(fmaxf(r00sq, kTinySq));
+  const float M = expf(-r00);
+  if (PARTIALS)
+    p[0] = M / r00 * max_w(r00sq, kTinySq) * max_w(x0, 0.f);
+  return M;
+}
 
 // Kzz slot Gram of lhs tensor (v, dv) against rhs tensor (w, dw) from the
 // four augmented dots a00 = <v,w>, d01 = <v,dw>, d10 = <dv,w>, dxx = <dv,dw>.
@@ -68,10 +224,16 @@ constexpr int kMaxLevels = 8;
 // :257-283) with increments = difference: the steps are 2-point paths, and
 // without difference the entry is the plain Gram exp(A00) / A00.  It is
 // symmetric in d01 and d10, so either sequence may be the row side.
-template <bool SHORT = false>
+// M12: matern12 (mat12_cross) with nx, ny the step norms of the lhs
+// and rhs tensors; symmetric too, with nx and ny swapped.
+template <bool SHORT = false, bool M12 = false>
 __device__ __forceinline__ float slot_gram_zz(float a00, float d01, float d10,
                                               float dxx, int base,
-                                              bool increments) {
+                                              bool increments, float nx = 0.f,
+                                              float ny = 0.f) {
+  if (M12)
+    return increments ? mat12_cross<SHORT>(a00, d01, d10, dxx, nx, ny)
+                      : mat12_plain(a00);
   if (base == kLinear) return increments ? dxx : a00;
   if (!increments) return expf(a00);
   return expf(a00) * (slot_expm1<SHORT>(d01 + d10 + dxx) -
@@ -81,12 +243,23 @@ __device__ __forceinline__ float slot_gram_zz(float a00, float d01, float d10,
 // Kzx slot Gram of inducing tensor (v, dv) against observation x_t with
 // time step dx_t, from a0 = <v,x>, dza = <dv,x>, da0 = <v,dx>, dda = <dv,dx>.
 // rbf with increments and difference is the (z-increment x time-increment)
-// entry exp(A0) (exp(dZA) expm1(dA0 + ddA) - expm1(dA0)).
-template <bool SHORT = false>
+// entry exp(A0) (exp(dZA) expm1(dA0 + ddA) - expm1(dA0)).  M12: matern12
+// with the tensor's step on the x side (d10 = dza, norm nz) and the time
+// step on the y side (d01 = da0, norm nt), or the one-sided difference of
+// the one that is there (_slot_gram_zx, inducing_pallas.py:566-585).
+template <bool SHORT = false, bool M12 = false>
 __device__ __forceinline__ float slot_gram_zx(float a0, float dza, float da0,
                                               float dda, int base,
                                               bool increments,
-                                              bool difference) {
+                                              bool difference, float nz = 0.f,
+                                              float nt = 0.f) {
+  if (M12) {
+    if (increments && difference)
+      return mat12_cross<SHORT>(a0, da0, dza, dda, nz, nt);
+    if (increments) return mat12_onesided<SHORT>(a0, dza, nz);
+    if (difference) return mat12_onesided<SHORT>(a0, da0, nt);
+    return mat12_plain(a0);
+  }
   if (base == kLinear) {
     if (increments) return difference ? dda : dza;
     return difference ? da0 : a0;
@@ -101,19 +274,24 @@ __device__ __forceinline__ float slot_gram_zx(float a0, float dza, float da0,
   return expf(a0);
 }
 
-// slot_gram_zz and its partials p = dG/d(a00, d01, d10, dxx) in one pass;
-// the backward weights of _slot_gram_zz_bwd are the slot cotangent times p
-// (W_A00, W_d01, W_d10, W_dxx), and so are those of the seq x seq backward
-// with Mbar in place of the slot cotangent (signature_pallas.py:1021-1034).
+// slot_gram_zz and its partials p = dG/d(a00, d01, d10, dxx, nx, ny) in one
+// pass (p[4] and p[5], the step norms', are 0 but under M12); the backward
+// weights of _slot_gram_zz_bwd are the slot cotangent times p (W_A00,
+// W_d01, W_d10, W_dxx, W_nx, W_ny), and so are those of the seq x seq
+// backward with Mbar in place of the slot cotangent
+// (signature_pallas.py:1021-1034 and, matern12, :991-1017).
 // SHORT (K2): expm1_acc.  Returns G.
-template <bool SHORT = false>
-__device__ __forceinline__ float slot_gram_zz_partials(float a00, float d01,
-                                                       float d10, float dxx,
-                                                       int base,
-                                                       bool increments,
-                                                       float p[4]) {
+template <bool SHORT = false, bool M12 = false>
+__device__ __forceinline__ float slot_gram_zz_partials(
+    float a00, float d01, float d10, float dxx, int base, bool increments,
+    float (&p)[6], float nx = 0.f, float ny = 0.f) {
   // every index below is a constant, so p stays in registers
-  p[0] = p[1] = p[2] = p[3] = 0.f;
+  p[0] = p[1] = p[2] = p[3] = p[4] = p[5] = 0.f;
+  if (M12) {
+    if (increments)
+      return mat12_cross_partials<SHORT>(a00, d01, d10, dxx, nx, ny, p);
+    return mat12_plain<true>(a00, p);
+  }
   if (base == kLinear) {
     p[0] = increments ? 0.f : 1.f;
     p[3] = increments ? 1.f : 0.f;
@@ -134,17 +312,37 @@ __device__ __forceinline__ float slot_gram_zz_partials(float a00, float d01,
   return g;
 }
 
-// slot_gram_zx and its partials p = dG/d(a0, dza, da0, dda) in one pass;
-// the backward weights of _slot_gram_zx_bwd are the slot cotangent times p
-// (W_A0, W_dZA, W_dA0, W_ddA).  Returns G.
-__device__ __forceinline__ float slot_gram_zx_partials(float a0, float dza,
-                                                       float da0, float dda,
-                                                       int base,
-                                                       bool increments,
-                                                       bool difference,
-                                                       float p[4]) {
+// slot_gram_zx and its partials p = dG/d(a0, dza, da0, dda, nz, nt) in one
+// pass (p[4] and p[5], the step norms', are 0 but under M12); the backward
+// weights of _slot_gram_zx_bwd are the slot cotangent times p (W_A0, W_dZA,
+// W_dA0, W_ddA, W_nz, W_nt).  Returns G.
+template <bool M12 = false>
+__device__ __forceinline__ float slot_gram_zx_partials(
+    float a0, float dza, float da0, float dda, int base, bool increments,
+    bool difference, float (&p)[6], float nz = 0.f, float nt = 0.f) {
   // every index below is a constant, so p stays in registers
-  p[0] = p[1] = p[2] = p[3] = 0.f;
+  p[0] = p[1] = p[2] = p[3] = p[4] = p[5] = 0.f;
+  if (M12) {
+    float q[6];
+    if (increments && difference) {
+      const float g =
+          mat12_cross_partials<false>(a0, da0, dza, dda, nz, nt, q);
+      p[0] = q[0], p[1] = q[2], p[2] = q[1], p[3] = q[3];
+      p[4] = q[4], p[5] = q[5];
+      return g;
+    }
+    if (increments) {
+      const float g = mat12_onesided<false, true>(a0, dza, nz, q);
+      p[0] = q[0], p[1] = q[1], p[4] = q[2];
+      return g;
+    }
+    if (difference) {
+      const float g = mat12_onesided<false, true>(a0, da0, nt, q);
+      p[0] = q[0], p[2] = q[1], p[5] = q[2];
+      return g;
+    }
+    return mat12_plain<true>(a0, p);
+  }
   if (base == kLinear) {
     const int which = (increments ? 1 : 0) + (difference ? 2 : 0);
     p[0] = which == 0 ? 1.f : 0.f;

@@ -61,9 +61,20 @@
 // The grid is (nZ / 32, examples); past 65535 examples the launcher runs
 // one launch per slice of 65535 (grid y's limit), in order on the stream.
 //
+// matern12 (M12, a compile-time instance): six partials (common.cuh
+// slot_gram_zx_partials, expm1f), so six planes of weights a step and slot
+// (the wrapper sizes the chunk for them), and the step-norm chains:
+// phase 3 adds each lane's sum over the slots of W_nt / max(nt, 1e-30)
+// times the step's difference channels to the x-side values before the
+// reduce-scatter, phase 4 the chunk's sum of W_nz / max(nz, 1e-30) times
+// the tensor's own difference channels to g_dl (the true channels only:
+// signature_pallas._norm_chain_col / _row :218-238).  No dead-step mask:
+// the TPU kernel's Kzx backward has none.
+//
 // Layouts: vl, dl (lt, d2, nZ) as in K3; xv, xd (N, L, d2); ct
 // (M+1, nZ, N); gz (N, 2, lt, d2, nZ); gx (ceil(nZ/32), N, 2, L, d2);
-// the checkpoint scratch ck (N, ceil(nZ/32), chunks, lt, 32).
+// the checkpoint scratch ck (N, ceil(nZ/32), chunks, lt, 32); with
+// matern12 the step norms nzn (lt, nZ) and ntn (N, L), else null.
 #include "common.cuh"
 
 namespace gpsig {
@@ -83,24 +94,26 @@ __host__ __device__ inline int kzx_bwd_row_floats(int d2) {
   return (d2 + 3) & ~3;
 }
 
-// shared floats for a chunk of tc steps: x_t, dx_t; G (then Gbar); 4
-// partials (then weights); the scan exchange
-inline int kzx_bwd_smem_floats(int lt, int d2, int tc) {
-  return 2 * tc * kzx_bwd_row_floats(d2) + 6 * tc * lt * kZ;
+// shared floats for a chunk of tc steps: x_t, dx_t; G (then Gbar); np
+// partials (then weights: 4, or 6 with matern12); the scan exchange
+inline int kzx_bwd_smem_floats(int lt, int d2, int tc, int np) {
+  return 2 * tc * kzx_bwd_row_floats(d2) + (2 + np) * tc * lt * kZ;
 }
 
 // STAGED: d2 <= kRegD2, the block's inducing rows are staged in shared
 // memory once, and a thread holds the rows of the slot it works on in
 // registers; else they are read through L1 at each use
-template <int M, bool STAGED>
+template <int M, bool STAGED, bool M12>
 __global__ void __launch_bounds__(kThreads, 2)
 kzx_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
                const float* __restrict__ xv, const float* __restrict__ xd,
+               const float* __restrict__ nzn, const float* __restrict__ ntn,
                const float* __restrict__ ct, float* __restrict__ gz,
                float* __restrict__ gx, float* __restrict__ ck, int nz,
                int n_ex, int n0, int L, int d2, int t_chunk, int base,
                int increments, int difference) {
   constexpr int LT = M * (M + 1) / 2;
+  constexpr int NP = M12 ? 6 : 4;  // partials a slot Gram
   extern __shared__ float smem[];
   const bool inc = increments != 0, diff = difference != 0;
   const int T = diff ? L - 1 : L;
@@ -112,8 +125,8 @@ kzx_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
   float* s_xv = smem;                        // [tc][d2p]
   float* s_xd = s_xv + t_chunk * d2p;        // [tc][d2p]
   float* s_g = s_xd + t_chunk * d2p;         // [tc][LT][kZ]
-  float* s_p = s_g + t_chunk * LT * kZ;      // [tc][LT][4][kZ]
-  float* s_r = s_p + 4 * t_chunk * LT * kZ;  // [tc][LT][kZ]
+  float* s_p = s_g + t_chunk * LT * kZ;       // [tc][LT][NP][kZ]
+  float* s_r = s_p + NP * t_chunk * LT * kZ;  // [tc][LT][kZ]
   // the block's inducing rows, [LT][kRegD2][kZ] each, when STAGED
   float* s_rv = s_r + t_chunk * LT * kZ;
   float* s_rd = s_rv + LT * kRegD2 * kZ;
@@ -163,7 +176,7 @@ kzx_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
   // STAGED) and each step's x_t, dx_t are read as broadcast float4s.  The
   // forward scans alone (`partials` false) never read a level's last slot,
   // so those M slots are skipped there.
-  auto grams = [&](int tc, bool partials) {
+  auto grams = [&](int t0, int tc, bool partials) {
     const int n_slots = partials ? LT : LT - M;
     const int per = (n_slots * tc + kTG - 1) / kTG;
     float rv[STAGED ? kRegD2 : 1], rd[STAGED ? kRegD2 : 1];
@@ -217,14 +230,19 @@ kzx_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
         }
       }
       const int sk = st * LT + k;
+      const float nzk = M12 ? __ldg(nzn + static_cast<size_t>(k) * nz + zc)
+                            : 0.f;
+      const float ntt =
+          M12 ? __ldg(ntn + static_cast<size_t>(n) * L + t0 + st) : 0.f;
       if (partials) {
-        float p[4];
-        s_g[sk * kZ + lane] =
-            slot_gram_zx_partials(a0, dza, da0, dda, base, inc, diff, p);
+        float p[6];
+        s_g[sk * kZ + lane] = slot_gram_zx_partials<M12>(
+            a0, dza, da0, dda, base, inc, diff, p, nzk, ntt);
 #pragma unroll
-        for (int w = 0; w < 4; ++w) s_p[(sk * 4 + w) * kZ + lane] = p[w];
+        for (int w = 0; w < NP; ++w) s_p[(sk * NP + w) * kZ + lane] = p[w];
       } else {
-        s_g[sk * kZ + lane] = slot_gram_zx(a0, dza, da0, dda, base, inc, diff);
+        s_g[sk * kZ + lane] = slot_gram_zx<false, M12>(
+            a0, dza, da0, dda, base, inc, diff, nzk, ntt);
       }
     }
   };
@@ -287,7 +305,7 @@ kzx_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
       __syncthreads();
       stage(t0, tc);
       __syncthreads();
-      grams(tc, false);
+      grams(t0, tc, false);
       __syncthreads();
       forward_scans(tc, S, Sv);
     }
@@ -310,7 +328,7 @@ kzx_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
     for (int k = 0; k < LT; ++k)
       S[k] = n_chunks > 1 ? ck_b[(ch * LT + k) * kZ + lane] : 0.f;
     __syncthreads();
-    grams(tc, true);
+    grams(t0, tc, true);
     __syncthreads();
     forward_scans(tc, S, Sv);
 
@@ -350,18 +368,28 @@ kzx_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
 
     // weights of this step, in place, and the x-side gradient of this step
     if (mine) {
+      float wnt = 0.f;  // M12: this lane's W_nt over the slots
       for (int k = 0; k < LT; ++k) {
         const float gbar = s_g[(tt * LT + k) * kZ + lane];
 #pragma unroll
-        for (int w = 0; w < 4; ++w)
-          s_p[((tt * LT + k) * 4 + w) * kZ + lane] *= gbar;
+        for (int w = 0; w < NP; ++w)
+          s_p[((tt * LT + k) * NP + w) * kZ + lane] *= gbar;
+        if (M12) wnt += s_p[((tt * LT + k) * NP + 5) * kZ + lane];
       }
+      if (M12)
+        wnt /= fmaxf(ntn[static_cast<size_t>(n) * L + t0 + tt], kTinyDen);
       for (int c0 = 0; c0 < dr; c0 += 16) {
         float vals[32];
 #pragma unroll
         for (int q = 0; q < 32; ++q) vals[q] = 0.f;
+        if (M12) {  // the time step's norm chain, summed with the lanes
+#pragma unroll
+          for (int cc = 0; cc < 16; ++cc)
+            if (c0 + cc < d2 - 2)
+              vals[16 + cc] = wnt * s_xd[tt * d2p + c0 + cc];
+        }
         for (int k = 0; k < LT; ++k) {
-          const float* pw = s_p + (tt * LT + k) * 4 * kZ + lane;
+          const float* pw = s_p + (tt * LT + k) * NP * kZ + lane;
           const float w0 = pw[0], w1 = pw[kZ];
           const float w2 = pw[2 * kZ], w3 = pw[3 * kZ];
 #pragma unroll
@@ -399,9 +427,11 @@ kzx_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
       for (int q = 0; q < kCB; ++q)  // issued now, used after the products
         acc[q] = (!first && z < nz && cb * kCB + q < d2)
                      ? dst[static_cast<size_t>(q) * nz] : 0.f;
+      float wnz = 0.f;  // M12, g_dl: the chunk's W_nz of this slot
       for (int u = 0; u < tc; ++u) {
-        const float* pw = s_p + (u * LT + k) * 4 * kZ + lane;
+        const float* pw = s_p + (u * LT + k) * NP * kZ + lane;
         const float a = pw[wa * kZ], b = pw[wb * kZ];
+        if (M12 && half) wnz += pw[4 * kZ];
         const float4* xs =
             reinterpret_cast<const float4*>(s_xv + u * d2p + cb * kCB);
         const float4* ds =
@@ -418,6 +448,13 @@ kzx_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
                   fmaf(a, xq[e], fmaf(b, yq[e], acc[4 * q4 + e]));
           }
         }
+      }
+      if (M12 && half) {  // the tensor's step-norm chain
+        wnz /= fmaxf(nzn[static_cast<size_t>(k) * nz + zc], kTinyDen);
+#pragma unroll
+        for (int q = 0; q < kCB; ++q)
+          if (cb * kCB + q < d2 - 2)
+            acc[q] = fmaf(wnz, rows_d[row_at(k, cb * kCB + q)], acc[q]);
       }
       if (z < nz) {
 #pragma unroll
@@ -439,21 +476,23 @@ kzx_bwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
   }
 }
 
-template <int M, bool STAGED>
+template <int M, bool STAGED, bool M12>
 cudaError_t launch_kzx_bwd_rows(const float* vl, const float* dl,
                                 const float* xv, const float* xd,
+                                const float* nzn, const float* ntn,
                                 const float* ct, float* gz, float* gx,
                                 float* ck, int nz, int n_ex, int L, int d2,
                                 int base, int increments, int difference,
                                 int t_chunk, cudaStream_t stream) {
   constexpr int LT = M * (M + 1) / 2;
-  const int smem = (kzx_bwd_smem_floats(LT, STAGED ? kRegD2 : d2, t_chunk) +
+  const int smem = (kzx_bwd_smem_floats(LT, STAGED ? kRegD2 : d2, t_chunk,
+                                        M12 ? 6 : 4) +
                     (STAGED ? 2 * LT * kRegD2 * kZ : 0)) *
                    static_cast<int>(sizeof(float));
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kzx_bwd_kernel<M, STAGED>,
+        kzx_bwd_kernel<M, STAGED, M12>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
@@ -463,9 +502,9 @@ cudaError_t launch_kzx_bwd_rows(const float* vl, const float* dl,
   for (int n0 = 0; n0 < n_ex; n0 += kMaxGridY) {
     const int count = n_ex - n0 < kMaxGridY ? n_ex - n0 : kMaxGridY;
     const dim3 grid((nz + kZ - 1) / kZ, count);
-    kzx_bwd_kernel<M, STAGED><<<grid, block, smem, stream>>>(
-        vl, dl, xv, xd, ct, gz, gx, ck, nz, n_ex, n0, L, d2, t_chunk, base,
-        increments, difference);
+    kzx_bwd_kernel<M, STAGED, M12><<<grid, block, smem, stream>>>(
+        vl, dl, xv, xd, nzn, ntn, ct, gz, gx, ck, nz, n_ex, n0, L, d2,
+        t_chunk, base, increments, difference);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
@@ -476,17 +515,23 @@ cudaError_t launch_kzx_bwd_rows(const float* vl, const float* dl,
 // memory) and d2 <= kRegD2; else the one that reads them through L1.
 template <int M>
 cudaError_t launch_kzx_bwd(const float* vl, const float* dl, const float* xv,
-                           const float* xd, const float* ct, float* gz,
+                           const float* xd, const float* nzn,
+                           const float* ntn, const float* ct, float* gz,
                            float* gx, float* ck, int nz, int n_ex, int L,
                            int d2, int base, int increments, int difference,
                            int t_chunk, int stage_rows, cudaStream_t stream) {
-  if (stage_rows && d2 <= kRegD2)
-    return launch_kzx_bwd_rows<M, true>(vl, dl, xv, xd, ct, gz, gx, ck, nz,
-                                        n_ex, L, d2, base, increments,
-                                        difference, t_chunk, stream);
-  return launch_kzx_bwd_rows<M, false>(vl, dl, xv, xd, ct, gz, gx, ck, nz,
-                                       n_ex, L, d2, base, increments,
-                                       difference, t_chunk, stream);
+#define GPSIG_KZX_BWD(STAGED, M12)                                           \
+  return launch_kzx_bwd_rows<M, STAGED, M12>(                                \
+      vl, dl, xv, xd, nzn, ntn, ct, gz, gx, ck, nz, n_ex, L, d2, base,       \
+      increments, difference, t_chunk, stream)
+  const bool staged = stage_rows && d2 <= kRegD2;
+  if (base == kMatern12) {
+    if (staged) GPSIG_KZX_BWD(true, true);
+    GPSIG_KZX_BWD(false, true);
+  }
+  if (staged) GPSIG_KZX_BWD(true, false);
+  GPSIG_KZX_BWD(false, false);
+#undef GPSIG_KZX_BWD
 }
 
 }  // namespace
@@ -494,6 +539,7 @@ cudaError_t launch_kzx_bwd(const float* vl, const float* dl, const float* xv,
 
 extern "C" int gpsig_kzx_bwd(const float* vl, const float* dl,
                              const float* xv, const float* xd,
+                             const float* nzn, const float* ntn,
                              const float* ct, float* gz, float* gx,
                              float* ck, int lt, int nz, int n_ex, int L,
                              int d2, int num_levels, int base, int increments,
@@ -501,10 +547,10 @@ extern "C" int gpsig_kzx_bwd(const float* vl, const float* dl,
                              void* stream) {
   if (lt != num_levels * (num_levels + 1) / 2 || nz <= 0 || n_ex <= 0 ||
       L <= 0 || d2 <= 0 || t_chunk <= 0 ||
-      t_chunk > gpsig::kTG)
+      t_chunk > gpsig::kTG || !gpsig::base_ok(base, nzn, ntn))
     return static_cast<int>(cudaErrorInvalidValue);
-  GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_kzx_bwd, vl, dl, xv, xd, ct,
-                      gz, gx, ck, nz, n_ex, L, d2, base, increments,
+  GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_kzx_bwd, vl, dl, xv, xd, nzn,
+                      ntn, ct, gz, gx, ck, nz, n_ex, L, d2, base, increments,
                       difference, t_chunk, stage_rows,
                       static_cast<cudaStream_t>(stream))
 }

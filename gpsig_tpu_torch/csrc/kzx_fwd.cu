@@ -53,6 +53,11 @@
 //   second launch was built and measured; it gave no gain a request could
 //   see (requests are host-bound) and was taken out (PERF.md §6).
 //
+// matern12 (M12, a compile-time instance of both paths): the slot Gram is
+// common.cuh's mat12_cross (or its one-sided or plain form) with the step
+// norms of the slot's tensor and of the time step (nzn (lt, nZ), ntn (N,
+// L), read through L1); the rbf-only RID instance stays rbf-only.
+//
 // The last time step has dx = 0 (inducing_cuda._prep_seq repeats the last
 // observation), so with difference the sweep stops at L - 1 and repeat
 // padding of a request stays exact; without difference every one of the L
@@ -108,11 +113,12 @@ __device__ __forceinline__ void chain_product(
 // channel block (the channel loop is then unrolled); RID: the main path's
 // slot Gram (rbf, increments, difference) compiled in, so a slot's
 // transcendentals are straight-line code the compiler can interleave with
-// the next slot's dots (~6% at N = 50 on the H100).
-template <int M, bool STAGED, bool ONE, bool RID>
+// the next slot's dots (~6% at N = 50 on the H100); M12: matern12.
+template <int M, bool STAGED, bool ONE, bool RID, bool M12>
 __global__ void __launch_bounds__(kThreads, 2)
 kzx_fwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
                const float* __restrict__ xv, const float* __restrict__ xd,
+               const float* __restrict__ nzn, const float* __restrict__ ntn,
                float* __restrict__ out, int nz, int n_ex, int L, int d2,
                int ncb, int t_chunk, int nr, int base, int increments,
                int difference) {
@@ -173,6 +179,8 @@ kzx_fwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
     for (int q = 0; q < NQ; ++q) Q[q] = 0.f;
     for (int st = r0; st < r1; ++st) {
       const float* xr = s_x + st * 2 * xs;
+      const float nt =
+          M12 ? __ldg(ntn + static_cast<size_t>(n) * L + t0 + st) : 0.f;
 #pragma unroll
       for (int m = 1; m <= M; ++m) {
         float G[M];  // level m's slot Grams at this step
@@ -219,9 +227,12 @@ kzx_fwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
               }
             }
           }
+          const float nzk =
+              M12 ? __ldg(nzn + static_cast<size_t>(k) * nz + zc) : 0.f;
           G[i] = RID ? slot_gram_zx<true>(a0, dza, da0, dda, kRbf, true,
                                           true)
-                     : slot_gram_zx<true>(a0, dza, da0, dda, base, inc, diff);
+                     : slot_gram_zx<true, M12>(a0, dza, da0, dda, base, inc,
+                                               diff, nzk, nt);
         }
         // the sub-chains of level m; j runs down so chain(i..j-1) is read
         // before this step adds to it
@@ -277,12 +288,14 @@ kzx_fwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
 // k = m(m-1)/2 + i is the sum over t_1 < ... < t_{i+1} (up to this step)
 // of that level's first i+1 slot Grams: a step adds S[k-1] G_k(t) to S[k],
 // i running down so that S[k-1] is still the sum over earlier steps.
-template <int M>
+template <int M, bool M12>
 __global__ void __launch_bounds__(kZ)
 kzx_fwd_serial_kernel(const float* __restrict__ vl,
                       const float* __restrict__ dl,
                       const float* __restrict__ xv,
-                      const float* __restrict__ xd, float* __restrict__ out,
+                      const float* __restrict__ xd,
+                      const float* __restrict__ nzn,
+                      const float* __restrict__ ntn, float* __restrict__ out,
                       int nz, int n_ex, int L, int d2, int base,
                       int increments, int difference) {
   constexpr int LT = ZxShape<M>::LT;
@@ -312,8 +325,10 @@ kzx_fwd_serial_kernel(const float* __restrict__ vl,
           da0 = fmaf(v[c], dx[c], da0);
           dda = fmaf(dv[c], dx[c], dda);
         }
-        const float g =
-            slot_gram_zx<true>(a0, dza, da0, dda, base, inc, diff);
+        const float g = slot_gram_zx<true, M12>(
+            a0, dza, da0, dda, base, inc, diff,
+            M12 ? nzn[static_cast<size_t>(k) * nz + zc] : 0.f,
+            M12 ? ntn[static_cast<size_t>(n) * L + t] : 0.f);
         const float prev = i > 0 ? s_s[(k - 1) * kZ + lane] : 1.f;
         s_s[k * kZ + lane] = fmaf(prev, g, s_s[k * kZ + lane]);
       }
@@ -330,46 +345,51 @@ kzx_fwd_serial_kernel(const float* __restrict__ vl,
 
 template <int M>
 cudaError_t launch_kzx_serial(const float* vl, const float* dl,
-                              const float* xv, const float* xd, float* out,
+                              const float* xv, const float* xd,
+                              const float* nzn, const float* ntn, float* out,
                               int nz, int n_ex, int L, int d2, int base,
                               int increments, int difference,
                               long long blocks, cudaStream_t stream) {
   const long long smem = ZxShape<M>::LT * kZ * sizeof(float);
   if (smem > kSmemMax) return cudaErrorInvalidValue;
+  auto* kernel = base == kMatern12 ? kzx_fwd_serial_kernel<M, true>
+                                   : kzx_fwd_serial_kernel<M, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kzx_fwd_serial_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kzx_fwd_serial_kernel<M><<<static_cast<unsigned>(blocks), kZ,
-                             static_cast<int>(smem), stream>>>(
-      vl, dl, xv, xd, out, nz, n_ex, L, d2, base, increments, difference);
+  kernel<<<static_cast<unsigned>(blocks), kZ, static_cast<int>(smem),
+           stream>>>(vl, dl, xv, xd, nzn, ntn, out, nz, n_ex, L, d2, base,
+                     increments, difference);
   return cudaGetLastError();
 }
 
-template <int M, bool STAGED, bool ONE, bool RID = false>
+template <int M, bool STAGED, bool ONE, bool RID, bool M12>
 cudaError_t launch_kzx_rows(const float* vl, const float* dl, const float* xv,
-                            const float* xd, float* out, int nz, int n_ex,
+                            const float* xd, const float* nzn,
+                            const float* ntn, float* out, int nz, int n_ex,
                             int L, int d2, int ncb, int t_chunk, int nr,
                             int base, int increments, int difference,
                             int smem, long long blocks, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kzx_fwd_kernel<M, STAGED, ONE, RID>,
+        kzx_fwd_kernel<M, STAGED, ONE, RID, M12>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  kzx_fwd_kernel<M, STAGED, ONE, RID><<<static_cast<unsigned>(blocks),
-                                        kThreads, smem, stream>>>(
-      vl, dl, xv, xd, out, nz, n_ex, L, d2, ncb, t_chunk, nr, base,
+  kzx_fwd_kernel<M, STAGED, ONE, RID, M12><<<static_cast<unsigned>(blocks),
+                                             kThreads, smem, stream>>>(
+      vl, dl, xv, xd, nzn, ntn, out, nz, n_ex, L, d2, ncb, t_chunk, nr, base,
       increments, difference);
   return cudaGetLastError();
 }
 
 template <int M>
 cudaError_t launch_kzx_chained(const float* vl, const float* dl,
-                               const float* xv, const float* xd, float* out,
+                               const float* xv, const float* xd,
+                               const float* nzn, const float* ntn, float* out,
                                int nz, int n_ex, int L, int d2, int base,
                                int increments, int difference,
                                long long blocks, cudaStream_t stream) {
@@ -392,25 +412,31 @@ cudaError_t launch_kzx_chained(const float* vl, const float* dl,
   while (t_chunk > 1 && bytes(t_chunk, nr) > kSmemMax) t_chunk /= 2;
   const long long smem = bytes(t_chunk, nr);
   if (smem > kSmemMax)  // rows too wide beside the states
-    return launch_kzx_serial<M>(vl, dl, xv, xd, out, nz, n_ex, L, d2, base,
-                                increments, difference, blocks, stream);
+    return launch_kzx_serial<M>(vl, dl, xv, xd, nzn, ntn, out, nz, n_ex, L,
+                                d2, base, increments, difference, blocks,
+                                stream);
   const bool rid = base == kRbf && increments && difference;
 #define GPSIG_KZX_ROWS(...)                                                  \
   return launch_kzx_rows<M, __VA_ARGS__>(                                    \
-      vl, dl, xv, xd, out, nz, n_ex, L, d2, ncb, t_chunk, nr, base,          \
-      increments, difference, static_cast<int>(smem), blocks, stream)
-  if (staged && rid) GPSIG_KZX_ROWS(true, true, true);
-  if (staged) GPSIG_KZX_ROWS(true, true);
-  if (ncb == 1) GPSIG_KZX_ROWS(false, true);
-  GPSIG_KZX_ROWS(false, false);
+      vl, dl, xv, xd, nzn, ntn, out, nz, n_ex, L, d2, ncb, t_chunk, nr,      \
+      base, increments, difference, static_cast<int>(smem), blocks, stream)
+  if (base == kMatern12) {
+    if (staged) GPSIG_KZX_ROWS(true, true, false, true);
+    if (ncb == 1) GPSIG_KZX_ROWS(false, true, false, true);
+    GPSIG_KZX_ROWS(false, false, false, true);
+  }
+  if (staged && rid) GPSIG_KZX_ROWS(true, true, true, false);
+  if (staged) GPSIG_KZX_ROWS(true, true, false, false);
+  if (ncb == 1) GPSIG_KZX_ROWS(false, true, false, false);
+  GPSIG_KZX_ROWS(false, false, false, false);
 #undef GPSIG_KZX_ROWS
 }
 
 template <int M>
 cudaError_t launch_kzx(const float* vl, const float* dl, const float* xv,
-                       const float* xd, float* out, int nz, int n_ex, int L,
-                       int d2, int base, int increments, int difference,
-                       cudaStream_t stream) {
+                       const float* xd, const float* nzn, const float* ntn,
+                       float* out, int nz, int n_ex, int L, int d2, int base,
+                       int increments, int difference, cudaStream_t stream) {
   const long long blocks = static_cast<long long>(n_ex) * ((nz + kZ - 1) / kZ);
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
   // the chained path holds one range state and the block's beside a step
@@ -418,25 +444,28 @@ cudaError_t launch_kzx(const float* vl, const float* dl, const float* xv,
                                static_cast<long long>(sizeof(float)) <=
                            kSmemMax;
   if constexpr (kChains)
-    return launch_kzx_chained<M>(vl, dl, xv, xd, out, nz, n_ex, L, d2, base,
-                                 increments, difference, blocks, stream);
+    return launch_kzx_chained<M>(vl, dl, xv, xd, nzn, ntn, out, nz, n_ex, L,
+                                 d2, base, increments, difference, blocks,
+                                 stream);
   else
-    return launch_kzx_serial<M>(vl, dl, xv, xd, out, nz, n_ex, L, d2, base,
-                                increments, difference, blocks, stream);
+    return launch_kzx_serial<M>(vl, dl, xv, xd, nzn, ntn, out, nz, n_ex, L,
+                                d2, base, increments, difference, blocks,
+                                stream);
 }
 
 }  // namespace
 }  // namespace gpsig
 
 extern "C" int gpsig_kzx_fwd(const float* vl, const float* dl,
-                             const float* xv, const float* xd, float* out,
+                             const float* xv, const float* xd,
+                             const float* nzn, const float* ntn, float* out,
                              int lt, int nz, int n_ex, int L, int d2,
                              int num_levels, int base, int increments,
                              int difference, void* stream) {
   if (lt != num_levels * (num_levels + 1) / 2 || nz <= 0 || n_ex <= 0 ||
-      L <= 0 || d2 <= 0)
+      L <= 0 || d2 <= 0 || !gpsig::base_ok(base, nzn, ntn))
     return static_cast<int>(cudaErrorInvalidValue);
-  GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_kzx, vl, dl, xv, xd, out, nz,
-                      n_ex, L, d2, base, increments, difference,
+  GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_kzx, vl, dl, xv, xd, nzn, ntn,
+                      out, nz, n_ex, L, d2, base, increments, difference,
                       static_cast<cudaStream_t>(stream))
 }

@@ -39,7 +39,7 @@
 //     for each of g_vl, g_dl (strip I) and g_vr, g_dr (strip J), a thread
 //     2 rows x 4 channels, 6 shared loads for 16 FMAs;
 //   * shared memory is two channel blocks of rows and one slot's weights,
-//     37 KB at any width and level count;
+//     37 KB at any width and level count (46 KB with matern12);
 //   * a block writes its lhs gradients into the partial slab of its J
 //     range and its rhs gradients into that of its I range, adding over
 //     the tile pairs it walks (each thread re-reads only what it wrote);
@@ -48,7 +48,19 @@
 //     the wrapper sums the slabs with torch.sum: no atomics, the result is
 //     deterministic.
 //
-// Inputs are (lt, nZ, d2) row-major float32 (inducing_cuda._prep_tensors)
+// matern12 (M12, a compile-time instance): pass 1 keeps a slot's four dots,
+// not its Gram and partials (the rbf shortcut that dG/da00 = G does not
+// hold); the weights step evaluates the closed forms (common.cuh
+// mat12_cross) for the exclusive products and keeps Mbar; pass 2 takes the
+// six partials (mat12_cross_partials) as it writes the slot's weights.  The
+// two step-norm weights W_nx, W_ny, divided by their norms, take two more
+// planes of shared memory (46 KB in all), and the warps of g_dl and g_dr
+// add their chain, dl[i] * sum_j W_nx(i, j) / max(n_i, 1e-30) over the
+// true channels (signature_pallas._norm_chain_col / _row :218-238), to the
+// contraction.
+//
+// Inputs are (lt, nZ, d2) row-major float32 (inducing_cuda._prep_tensors),
+// with matern12 the step norms nl, nr (lt, nZ) of dl and dr (else null),
 // and ct (M+1, nZ, nZ); out is (ranges, 2 sides, 2 [value, difference], lt,
 // nZ, d2p) -- in that order g_vl, g_dl, g_vr, g_dr -- d2p = d2 rounded up
 // to 16, side 0 the lhs rows (vl, dl), side 1 the rhs rows (vr, dr).
@@ -62,24 +74,30 @@ struct KzzBwdArgs {
   const float* dl;
   const float* vr;
   const float* dr;
+  const float* nl;
+  const float* nr;
   const float* ct;
   float* out;
   int nz, d2, d2p, lt, base, increments, symmetric, ranges, per, strips;
 };
 
+// W_A00, W_d01, W_d10, W_dxx of a slot; M12: W_nx / nx, W_ny / ny too
+template <bool M12>
 struct __align__(16) KzzBwdSmem {
-  ZzRows rows[2];                    // double-buffered staged rows
-  float w[4][kZzTile][kZzTile + 1];  // W_A00, W_d01, W_d10, W_dxx of a slot
+  ZzRows rows[2];  // double-buffered staged rows
+  float w[M12 ? 6 : 4][kZzTile][kZzTile + 1];
 };
 
 // The thread's 2 rows x 4 channels of gradient g over the staged channel
 // block: g = 0, 1 the lhs value / difference rows of the tile's rows (the
 // weights (A00, d01) / (d10, dxx) against the rhs rows vr, dr), g = 2, 3 the
 // rhs value / difference rows of its columns ((A00, d10) / (d01, dxx)
-// against vl, dl).  Row r and r + 16, channels 4q .. 4q + 3.
-__device__ __forceinline__ void kzz_contract(const KzzBwdSmem& s,
+// against vl, dl).  Row r and r + 16, channels 4q .. 4q + 3.  M12: g = 1,
+// 3 add the norm chain over the block's true channels (the first n_true).
+template <bool M12>
+__device__ __forceinline__ void kzz_contract(const KzzBwdSmem<M12>& s,
                                              const ZzRows& rows, int g,
-                                             int r, int q,
+                                             int r, int q, int n_true,
                                              float (&acc)[2][4]) {
   const bool lhs = g < 2;
   const int xa = g == 1 ? 2 : g == 3 ? 1 : 0;
@@ -108,6 +126,29 @@ __device__ __forceinline__ void kzz_contract(const KzzBwdSmem& s,
     acc[1][2] = fmaf(a1, v.z, fmaf(b1, d.z, acc[1][2]));
     acc[1][3] = fmaf(a1, v.w, fmaf(b1, d.w, acc[1][3]));
   }
+  if (M12 && (g & 1)) {
+    // the step-norm chain: the row's summed W_n / n times its own
+    // difference channels
+    const float* wn = &s.w[g == 1 ? 4 : 5][0][0];
+    float n0 = 0.f, n1 = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < kZzTile; ++k) {
+      n0 += wn[r * rs + k * ks];
+      n1 += wn[(r + 16) * rs + k * ks];
+    }
+    const float(*own)[kZzPad] = rows.r[g == 1 ? 1 : 3];
+    const float4 o0 = reinterpret_cast<const float4*>(own[r])[q];
+    const float4 o1 = reinterpret_cast<const float4*>(own[r + 16])[q];
+    const float x0[4] = {o0.x, o0.y, o0.z, o0.w};
+    const float x1[4] = {o1.x, o1.y, o1.z, o1.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (4 * q + e < n_true) {
+        acc[0][e] = fmaf(n0, x0[e], acc[0][e]);
+        acc[1][e] = fmaf(n1, x1[e], acc[1][e]);
+      }
+    }
+  }
 }
 
 // Row `row` of slab p's gradient (side, value / difference vd) of slot k.
@@ -134,8 +175,8 @@ __device__ __forceinline__ float* slab(const KzzBwdArgs& A, int p, int side,
 //   pass 2, every slot: its weights into shared memory (at its first
 //     channel block), then the contraction.
 // dG/da00 is not kept: it is G for rbf and a constant for the linear base.
-template <int M>
-__device__ __forceinline__ void kzz_bwd_level(KzzBwdSmem& s,
+template <int M, bool M12>
+__device__ __forceinline__ void kzz_bwd_level(KzzBwdSmem<M12>& s,
                                               const KzzBwdArgs& A, int m,
                                               int ra, int rb) {
   const int k0 = m * (m - 1) / 2;
@@ -208,8 +249,17 @@ __device__ __forceinline__ void kzz_bwd_level(KzzBwdSmem& s,
       const int row0 = g < 2 ? i0 : j0;
 
       // G[u]: slot u's Gram, then its weight W_A00; P[u]: its partials
-      // dG/d(d01, d10, dxx), then their weights
+      // dG/d(d01, d10, dxx), then their weights.  M12: G[u] and P[u] hold
+      // the slot's dots (a00; d01, d10, dxx) and Mb[u] its Mbar
       float G[M][4], P[M][4][3], acc[4][4];
+      float Mb[M12 ? M : 1][4];
+      // the step norms of the thread's pair pq in slot k (M12)
+      auto norms = [&](int k, int pq, float& nx, float& ny) {
+        const int i = i0 + ty + 16 * (pq >> 1), j = j0 + tx + 16 * (pq & 1);
+        const size_t at = static_cast<size_t>(k) * A.nz;
+        nx = i < A.nz ? __ldg(A.nl + at + i) : 0.f;
+        ny = j < A.nz ? __ldg(A.nr + at + j) : 0.f;
+      };
       int buf = 0;
       for (int t = 0; t < steps; ++t) {
         const bool pass1 = t < m * ncb;
@@ -229,10 +279,12 @@ __device__ __forceinline__ void kzz_bwd_level(KzzBwdSmem& s,
           if (cb == ncb - 1) {
 #pragma unroll
             for (int pq = 0; pq < 4; ++pq) {
-              float pd[4];
-              const float gv = slot_gram_zz_partials<true>(
-                  acc[pq][0], acc[pq][1], acc[pq][2], acc[pq][3], A.base,
-                  inc, pd);
+              float pd[6] = {acc[pq][0], acc[pq][1], acc[pq][2], acc[pq][3]};
+              const float gv =
+                  M12 ? acc[pq][0]
+                      : slot_gram_zz_partials<true>(
+                            acc[pq][0], acc[pq][1], acc[pq][2], acc[pq][3],
+                            A.base, inc, pd);
 #pragma unroll
               for (int u = 0; u < M; ++u) {
                 if (u == sl) {
@@ -243,7 +295,34 @@ __device__ __forceinline__ void kzz_bwd_level(KzzBwdSmem& s,
               }
             }
           }
-          if (t == m * ncb - 1) {
+          if (M12 && t == m * ncb - 1) {
+            // each slot's Gram from its dots, then Mbar_s = ct * prod_{r !=
+            // s} G_r, kept for pass 2
+#pragma unroll
+            for (int pq = 0; pq < 4; ++pq) {
+              float gv[M];
+#pragma unroll
+              for (int u = 0; u < M; ++u) {
+                gv[u] = 1.f;
+                if (u < m) {
+                  float nx, ny;
+                  norms(k0 + u, pq, nx, ny);
+                  gv[u] = slot_gram_zz<true, true>(
+                      G[u][pq], P[u][pq][0], P[u][pq][1], P[u][pq][2],
+                      A.base, inc, nx, ny);
+                }
+              }
+              float pre = c[pq];
+#pragma unroll
+              for (int u = 0; u < M; ++u) {
+                float suf = 1.f;
+#pragma unroll
+                for (int v = u + 1; v < M; ++v) suf *= gv[v];
+                Mb[M12 ? u : 0][pq] = pre * suf;
+                pre *= gv[u];
+              }
+            }
+          } else if (t == m * ncb - 1) {
             // every slot's weights, in place: Mbar_s = ct * prod_{r < s} G_r
             // * prod_{r > s} G_r, G_s read before it becomes W_A00
 #pragma unroll
@@ -273,16 +352,31 @@ __device__ __forceinline__ void kzz_bwd_level(KzzBwdSmem& s,
 #pragma unroll
                 for (int pq = 0; pq < 4; ++pq) {
                   const int il = ty + 16 * (pq >> 1), jl = tx + 16 * (pq & 1);
-                  s.w[0][il][jl] = G[u][pq];
+                  if (M12) {  // the six partials from the kept dots
+                    float nx, ny, pd[6];
+                    norms(k0 + u, pq, nx, ny);
+                    slot_gram_zz_partials<true, true>(
+                        G[u][pq], P[u][pq][0], P[u][pq][1], P[u][pq][2],
+                        A.base, inc, pd, nx, ny);
+                    const float mb = Mb[M12 ? u : 0][pq];
 #pragma unroll
-                  for (int x = 0; x < 3; ++x) s.w[x + 1][il][jl] = P[u][pq][x];
+                    for (int x = 0; x < 4; ++x) s.w[x][il][jl] = mb * pd[x];
+                    s.w[M12 ? 4 : 0][il][jl] = mb * pd[4] / fmaxf(nx, kTinyDen);
+                    s.w[M12 ? 5 : 0][il][jl] = mb * pd[5] / fmaxf(ny, kTinyDen);
+                  } else {
+                    s.w[0][il][jl] = G[u][pq];
+#pragma unroll
+                    for (int x = 0; x < 3; ++x)
+                      s.w[x + 1][il][jl] = P[u][pq][x];
+                  }
                 }
               }
             }
             __syncthreads();  // the weights are written
           }
           float out[2][4];
-          kzz_contract(s, s.rows[buf], g, r, q, out);
+          kzz_contract<M12>(s, s.rows[buf], g, r, q,
+                            A.d2 - 2 - cb * kZzCB, out);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int row = row0 + r + 16 * h;
@@ -306,11 +400,12 @@ __device__ __forceinline__ void kzz_bwd_level(KzzBwdSmem& s,
 }
 
 // Two blocks an SM (128 registers, a few spilled): on the H100 as fast as
-// one block of 230 registers with none, and faster than three.
-template <int M>
-__global__ void __launch_bounds__(kZzThreads, 2)
+// one block of 230 registers with none, and faster than three.  matern12
+// spilled ~1 KB a thread at 128 registers: one block an SM.
+template <int M, bool M12>
+__global__ void __launch_bounds__(kZzThreads, M12 ? 1 : 2)
 kzz_bwd_kernel(const KzzBwdArgs A) {
-  __shared__ KzzBwdSmem s;
+  __shared__ KzzBwdSmem<M12> s;
   const int n_pairs =
       A.symmetric ? A.ranges * (A.ranges + 1) / 2 : A.ranges * A.ranges;
   const int m = M - static_cast<int>(blockIdx.x) / n_pairs;
@@ -322,14 +417,16 @@ kzz_bwd_kernel(const KzzBwdArgs A) {
     ra = p / A.ranges;
     rb = p % A.ranges;
   }
-  kzz_bwd_level<M>(s, A, m, ra, rb);
+  kzz_bwd_level<M, M12>(s, A, m, ra, rb);
 }
 
 template <int M>
 cudaError_t launch_kzz_bwd(const KzzBwdArgs& A, cudaStream_t stream) {
   const int n_pairs =
       A.symmetric ? A.ranges * (A.ranges + 1) / 2 : A.ranges * A.ranges;
-  kzz_bwd_kernel<M><<<M * n_pairs, kZzThreads, 0, stream>>>(A);
+  auto* kernel = A.base == kMatern12 ? kzz_bwd_kernel<M, true>
+                                     : kzz_bwd_kernel<M, false>;
+  kernel<<<M * n_pairs, kZzThreads, 0, stream>>>(A);
   return cudaGetLastError();
 }
 
@@ -338,6 +435,7 @@ cudaError_t launch_kzz_bwd(const KzzBwdArgs& A, cudaStream_t stream) {
 
 extern "C" int gpsig_kzz_bwd(const float* vl, const float* dl,
                              const float* vr, const float* dr,
+                             const float* nl, const float* nr,
                              const float* ct, float* out, int lt, int nz,
                              int d2, int num_levels, int base, int increments,
                              int symmetric, int ranges, int per,
@@ -345,9 +443,10 @@ extern "C" int gpsig_kzz_bwd(const float* vl, const float* dl,
   const int strips = (nz + gpsig::kZzTile - 1) / gpsig::kZzTile;
   if (lt != num_levels * (num_levels + 1) / 2 || nz <= 0 || d2 <= 0 ||
       ranges <= 0 || ranges > 1024 || per <= 0 ||
-      (ranges - 1) * per >= strips || ranges * per < strips)
+      (ranges - 1) * per >= strips || ranges * per < strips ||
+      !gpsig::base_ok(base, nl, nr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const gpsig::KzzBwdArgs A{vl, dl, vr, dr, ct, out,
+  const gpsig::KzzBwdArgs A{vl, dl, vr, dr, nl, nr, ct, out,
                             nz, d2, (d2 + gpsig::kZzCB - 1) / gpsig::kZzCB *
                                         gpsig::kZzCB,
                             lt, base, increments, symmetric, ranges, per,

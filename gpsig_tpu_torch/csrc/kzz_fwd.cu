@@ -29,8 +29,15 @@
 //     buffered, so one barrier a slot at d2 <= 16; the dots from float4s,
 //     8 loads for 64 FMAs; any width in blocks of 16 channels.
 //
+// matern12 (M12, a compile-time instance): the slot Gram is common.cuh's
+// mat12_cross with the step norms of the pair's tensors (two float loads a
+// pair and slot, through L1) -- 4 square roots, 7 divisions and 5
+// exp/expm1 an entry where rbf takes 4 transcendentals; two blocks an SM.
+//
 // Inputs are (lt, nZ, d2) row-major float32: lhs-augmented values vl and
-// differences dl, rhs-augmented vr and dr (inducing_cuda._prep_tensors).
+// differences dl, rhs-augmented vr and dr (inducing_cuda._prep_tensors);
+// with matern12 the step norms nl, nr (lt, nZ) of dl and dr's true
+// channels (inducing_cuda._step_norms), else null.
 #include "common.cuh"
 
 namespace gpsig {
@@ -38,11 +45,12 @@ namespace {
 
 // Four blocks an SM (64 registers; 528 slots for the 544 blocks at nZ=500,
 // M=4, so nearly all run at once): faster on the H100 than the three that
-// 80 registers allowed.
-template <int M>
-__global__ void __launch_bounds__(kZzThreads, 4)
+// 80 registers allowed.  matern12's closed form takes two (128 registers).
+template <int M, bool M12>
+__global__ void __launch_bounds__(kZzThreads, M12 ? 2 : 4)
 kzz_fwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
                const float* __restrict__ vr, const float* __restrict__ dr,
+               const float* __restrict__ nl, const float* __restrict__ nr,
                float* __restrict__ out, int nz, int d2, int base,
                int increments, int symmetric) {
   __shared__ ZzRows s_rows[2];
@@ -83,10 +91,19 @@ kzz_fwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
     }
     zz_dots(s_rows[it & 1], acc);
     if (cb == ncb - 1) {
+      const int k = k0 + it / ncb;
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        R[q] *= slot_gram_zz<true>(acc[q][0], acc[q][1], acc[q][2],
-                                   acc[q][3], base, inc);
+      for (int q = 0; q < 4; ++q) {
+        float nx = 0.f, ny = 0.f;
+        if (M12) {  // the step norms of the pair's tensors
+          const int i = i0 + threadIdx.x / 16 + 16 * (q >> 1);
+          const int j = j0 + threadIdx.x % 16 + 16 * (q & 1);
+          nx = i < nz ? __ldg(nl + static_cast<size_t>(k) * nz + i) : 0.f;
+          ny = j < nz ? __ldg(nr + static_cast<size_t>(k) * nz + j) : 0.f;
+        }
+        R[q] *= slot_gram_zz<true, M12>(acc[q][0], acc[q][1], acc[q][2],
+                                        acc[q][3], base, inc, nx, ny);
+      }
     }
     __syncthreads();
   }
@@ -128,14 +145,16 @@ kzz_fwd_kernel(const float* __restrict__ vl, const float* __restrict__ dl,
 
 template <int M>
 cudaError_t launch_kzz(const float* vl, const float* dl, const float* vr,
-                       const float* dr, float* out, int nz, int d2, int base,
-                       int increments, int symmetric, cudaStream_t stream) {
+                       const float* dr, const float* nl, const float* nr,
+                       float* out, int nz, int d2, int base, int increments,
+                       int symmetric, cudaStream_t stream) {
   const long long n = (nz + kZzTile - 1) / kZzTile;
   const long long blocks = M * (symmetric ? n * (n + 1) / 2 : n * n);
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  kzz_fwd_kernel<M><<<static_cast<unsigned>(blocks), kZzThreads, 0,
-                      stream>>>(vl, dl, vr, dr, out, nz, d2, base,
-                                increments, symmetric);
+  auto* kernel = base == kMatern12 ? kzz_fwd_kernel<M, true>
+                                   : kzz_fwd_kernel<M, false>;
+  kernel<<<static_cast<unsigned>(blocks), kZzThreads, 0, stream>>>(
+      vl, dl, vr, dr, nl, nr, out, nz, d2, base, increments, symmetric);
   return cudaGetLastError();
 }
 
@@ -143,12 +162,14 @@ cudaError_t launch_kzz(const float* vl, const float* dl, const float* vr,
 }  // namespace gpsig
 
 extern "C" int gpsig_kzz_fwd(const float* vl, const float* dl,
-                             const float* vr, const float* dr, float* out,
+                             const float* vr, const float* dr,
+                             const float* nl, const float* nr, float* out,
                              int lt, int nz, int d2, int num_levels, int base,
                              int increments, int symmetric, void* stream) {
-  if (lt != num_levels * (num_levels + 1) / 2 || nz <= 0 || d2 <= 0)
+  if (lt != num_levels * (num_levels + 1) / 2 || nz <= 0 || d2 <= 0 ||
+      !gpsig::base_ok(base, nl, nr))
     return static_cast<int>(cudaErrorInvalidValue);
-  GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_kzz, vl, dl, vr, dr, out, nz,
-                      d2, base, increments, symmetric,
+  GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_kzz, vl, dl, vr, dr, nl, nr,
+                      out, nz, d2, base, increments, symmetric,
                       static_cast<cudaStream_t>(stream))
 }

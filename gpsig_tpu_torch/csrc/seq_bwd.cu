@@ -71,11 +71,23 @@
 // function needs -- read from shared memory at ~8 d2 loads and stores an
 // entry; plus the column-sum store (4 (M-1) bytes an entry each way).
 //
+// matern12 (M12, a compile-time instance of each configuration): the
+// outer sequence on the x side and the inner one on the y side of
+// common.cuh's mat12_cross (K5's orientation), six partials, so six weights
+// a row, inner step and register slot (W[r][6][j], compile-time indices),
+// and the JAX kernel's dead-step mask (signature_pallas.py:991-1017): the
+// weights of an entry whose outer or inner step is zero are 0 (its forward
+// is exactly 0, and the pad-adjoint partials through the 1e-30 floors
+// would leave f32 residue).  The step-norm weights, divided by their norms,
+// add their chains in the contraction: od[s] to the outer row's g_od, id[t]
+// to the inner step's g_id, over the true channels.
+//
 // Layouts: ov, od (N_out, L_out, d2) and iv, id (N_in, L_in, d2), the outer
 // and inner arguments (the wrapper's `swap` says which is the first); ct
 // (M+1, N1, N2); slabs g_out (N_out, sets, To, 2, d2) and g_in (N_in,
 // ranges, Ti, 2, d2), T = L - 1 with difference, else L; workspace and
-// column-sum store per warp as seq_bwd_ws_floats / seq_bwd_cs_floats say.
+// column-sum store per warp as seq_bwd_ws_floats / seq_bwd_cs_floats say;
+// with matern12 the step norms no (N_out, L_out) and ni (N_in, L_in).
 #include <cstdint>
 
 #include "common.cuh"
@@ -166,11 +178,12 @@ __device__ __forceinline__ void seq_rows_dots(
 // taken together, whose dots, partials and contractions are independent
 // (only the level carries are serial), so they overlap and share each load
 // of an inner value and of an inner gradient; D2: d2 as a compile-time
-// constant (the benchmark's 16), or 0 for any d2.
-template <int M, int CPL, int R, int D2>
+// constant (the benchmark's 16), or 0 for any d2; M12: matern12.
+template <int M, int CPL, int R, int D2, bool M12>
 __global__ void __launch_bounds__(kSeqThreads)
 seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
                const float* __restrict__ iv, const float* __restrict__ id,
+               const float* __restrict__ no, const float* __restrict__ ni,
                const float* __restrict__ ct, float* __restrict__ g_out,
                float* __restrict__ g_in, float* __restrict__ gscratch,
                int n_out, int L_out, int n_in, int L_in, int d2, int base,
@@ -179,6 +192,7 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
   if (D2 > 0) d2 = D2;  // the launcher checked d2 == D2
   constexpr int MC = M > 1 ? M - 1 : 1;
   constexpr int CB = 16 / R;  // channels a contraction round: R x 2 x CB = 32
+  constexpr int NW = M12 ? 6 : 4;  // weights an entry
   extern __shared__ float smem[];
   const bool diff = difference != 0, sym = symmetric != 0;
   const int To = diff ? L_out - 1 : L_out;
@@ -265,6 +279,20 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
     const float* od_o = od + static_cast<size_t>(o) * L_out * d2;
     float* gout_o =
         g_out + (static_cast<size_t>(o) * n_sets + set) * To * 2 * d2;
+    // M12: the step norm of outer row s and of the lane's inner steps of
+    // chunk ch
+    auto outer_norm = [&](int s) {
+      return M12 ? __ldg(no + static_cast<size_t>(o) * L_out + s) : 0.f;
+    };
+    auto inner_norms = [&](int ch, float (&nin)[CPL]) {
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        const int t = ch * W + lg + j * G;
+        nin[j] = M12 && j < cpl && live_i && t < L_in
+                     ? __ldg(ni + static_cast<size_t>(i) * L_in + t)
+                     : 0.f;
+      }
+    };
 
     // forward sweeps, chunk by chunk: store each row's incoming column
     // sums, and with chunks the row carries of the next chunk
@@ -275,6 +303,8 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
       auto inner_ok = [&](int j) {
         return j < cpl && ch * W + lg + j * G < Ti;
       };
+      float nin[CPL];
+      inner_norms(ch, nin);
       float Cs[MC][CPL];
 #pragma unroll
       for (int k = 0; k < MC; ++k)
@@ -314,11 +344,13 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
                 ycar[(ch + 1) * chunk_y + carry_at(s, m - 2)] = y + tot;
             }
           }
+          const float nos = outer_norm(s);
 #pragma unroll
           for (int j = 0; j < CPL; ++j) {
             const float mv =
-                inner_ok(j) ? slot_gram_zz(a00[r][j], d01[r][j], d10[r][j],
-                                           dxx[r][j], base, diff)
+                inner_ok(j) ? slot_gram_zz<false, M12>(
+                                  a00[r][j], d01[r][j], d10[r][j], dxx[r][j],
+                                  base, diff, nos, nin[j])
                             : 0.f;
             Cs[0][j] += mv;
 #pragma unroll
@@ -340,6 +372,8 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
       auto inner_ok = [&](int j) {
         return j < cpl && ch * W + lg + j * G < Ti;
       };
+      float nin[CPL];
+      inner_norms(ch, nin);
       float D[MC][CPL];
 #pragma unroll
       for (int k = 0; k < MC; ++k)
@@ -372,23 +406,34 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
             }
           }
         }
-        float W[R][4][CPL], Mv[R][CPL];
+        float W[R][NW][CPL], Mv[R][CPL], nrow[R];
         {
           float a00[R][CPL], d01[R][CPL], d10[R][CPL], dxx[R][CPL];
           seq_rows_dots<CPL, R>(ov_o, od_o, srow, in_v, in_d, d2, cstride, cpl,
                                 lane, diff, vec4 != 0, a00, d01, d10, dxx);
 #pragma unroll
-          for (int r = 0; r < R; ++r)
+          for (int r = 0; r < R; ++r) {
+            nrow[r] = outer_norm(srow[r]);
 #pragma unroll
             for (int j = 0; j < CPL; ++j) {
-              float p[4];
-              Mv[r][j] = slot_gram_zz_partials(a00[r][j], d01[r][j], d10[r][j],
-                                               dxx[r][j], base, diff, p);
-              if (!(inner_ok(j) && s_hi - r >= 0))
-                Mv[r][j] = p[0] = p[1] = p[2] = p[3] = 0.f;
+              float p[6];
+              Mv[r][j] = slot_gram_zz_partials<false, M12>(
+                  a00[r][j], d01[r][j], d10[r][j], dxx[r][j], base, diff, p,
+                  nrow[r], nin[j]);
+              if (!(inner_ok(j) && s_hi - r >= 0)) {
+                Mv[r][j] = 0.f;
 #pragma unroll
-              for (int w = 0; w < 4; ++w) W[r][w][j] = p[w];
+                for (int w = 0; w < 6; ++w) p[w] = 0.f;
+              }
+              // the dead-step mask: a zero step on either side
+              if (M12 && diff && !(nrow[r] > 0.f && nin[j] > 0.f)) {
+#pragma unroll
+                for (int w = 0; w < 6; ++w) p[w] = 0.f;
+              }
+#pragma unroll
+              for (int w = 0; w < NW; ++w) W[r][w][j] = p[w];
             }
+          }
         }
         // Mbar from Rbar_M .. Rbar_1, row by row downwards; D (rows > s) is
         // read before the row adds to it
@@ -422,9 +467,14 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
             }
           }
 #pragma unroll
-          for (int j = 0; j < CPL; ++j)
+          for (int j = 0; j < CPL; ++j) {
 #pragma unroll
-            for (int w = 0; w < 4; ++w) W[r][w][j] *= mbar[j];
+            for (int w = 0; w < NW; ++w) W[r][w][j] *= mbar[j];
+            if (M12) {  // the norm weights over their norms, for the chain
+              W[r][M12 ? 4 : 0][j] /= fmaxf(nrow[r], kTinyDen);
+              W[r][M12 ? 5 : 0][j] /= fmaxf(nin[j], kTinyDen);
+            }
+          }
         }
 
         // contractions, CB channels of the R rows at a time: the outer rows'
@@ -474,6 +524,10 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
                       gd[r] = fmaf(W[r][3][j], y, gd[r]);
                       av = fmaf(W[r][2][j], b[r], av);
                       ad = fmaf(W[r][3][j], b[r], fmaf(W[r][1][j], a[r], ad));
+                      if (M12 && c < d2 - 2) {  // the step-norm chains
+                        gd[r] = fmaf(W[r][M12 ? 4 : 0][j], b[r], gd[r]);
+                        ad = fmaf(W[r][M12 ? 5 : 0][j], y, ad);
+                      }
                     }
                     acc_d[at] = ad;
                   }
@@ -520,9 +574,10 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
   }
 }
 
-template <int M, int CPL, int R, int D2>
+template <int M, int CPL, int R, int D2, bool M12>
 cudaError_t launch_seq_bwd_tiles(const float* ov, const float* od,
                                  const float* iv, const float* id,
+                                 const float* no, const float* ni,
                                  const float* ct, float* g_out, float* g_in,
                                  float* gscratch, int n_out, int L_out,
                                  int n_in, int L_in, int d2, int base,
@@ -537,7 +592,7 @@ cudaError_t launch_seq_bwd_tiles(const float* ov, const float* od,
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        seq_bwd_kernel<M, CPL, R, D2>,
+        seq_bwd_kernel<M, CPL, R, D2, M12>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
@@ -547,10 +602,12 @@ cudaError_t launch_seq_bwd_tiles(const float* ov, const float* od,
       static_cast<long long>((n_in + gps - 1) / gps) * n_ranges;
   const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  seq_bwd_kernel<M, CPL, R, D2><<<static_cast<unsigned>(blocks), kSeqThreads,
-                                  static_cast<size_t>(smem), stream>>>(
-      ov, od, iv, id, ct, g_out, g_in, gscratch, n_out, L_out, n_in, L_in, d2,
-      base, difference, symmetric, swap, G, cpl, nc, n_ranges, ws_mode, vec4);
+  seq_bwd_kernel<M, CPL, R, D2, M12><<<static_cast<unsigned>(blocks),
+                                       kSeqThreads, static_cast<size_t>(smem),
+                                       stream>>>(
+      ov, od, iv, id, no, ni, ct, g_out, g_in, gscratch, n_out, L_out, n_in,
+      L_in, d2, base, difference, symmetric, swap, G, cpl, nc, n_ranges,
+      ws_mode, vec4);
   return cudaGetLastError();
 }
 
@@ -558,31 +615,43 @@ cudaError_t launch_seq_bwd_tiles(const float* ov, const float* od,
 // with d2 = 16 (the benchmark's) a compile-time constant; more: one row at
 // a time, with room for kSeqCols steps a lane.  Outer rows are read as
 // float4s when d2 is a multiple of 4 and the rows are aligned.
-template <int M>
-cudaError_t launch_seq_bwd(const float* ov, const float* od, const float* iv,
-                           const float* id, const float* ct, float* g_out,
-                           float* g_in, float* gscratch, int n_out, int L_out,
-                           int n_in, int L_in, int d2, int base,
-                           int difference, int symmetric, int swap, int G,
-                           int cpl, int nc, int n_ranges, int ws_mode,
-                           cudaStream_t stream) {
+template <int M, bool M12>
+cudaError_t launch_seq_bwd_base(const float* ov, const float* od,
+                                const float* iv, const float* id,
+                                const float* no, const float* ni,
+                                const float* ct, float* g_out, float* g_in,
+                                float* gscratch, int n_out, int L_out,
+                                int n_in, int L_in, int d2, int base,
+                                int difference, int symmetric, int swap,
+                                int G, int cpl, int nc, int n_ranges,
+                                int ws_mode, cudaStream_t stream) {
   const int vec4 = d2 % 4 == 0 &&
                    (reinterpret_cast<uintptr_t>(ov) |
                     reinterpret_cast<uintptr_t>(od)) % 16 == 0;
-  if (cpl == 1 && d2 == 16)
-    return launch_seq_bwd_tiles<M, 1, 4, 16>(
-        ov, od, iv, id, ct, g_out, g_in, gscratch, n_out, L_out, n_in, L_in,
-        d2, base, difference, symmetric, swap, G, cpl, nc, n_ranges, ws_mode,
-        vec4, stream);
-  if (cpl == 1)
-    return launch_seq_bwd_tiles<M, 1, 4, 0>(
-        ov, od, iv, id, ct, g_out, g_in, gscratch, n_out, L_out, n_in, L_in,
-        d2, base, difference, symmetric, swap, G, cpl, nc, n_ranges, ws_mode,
-        vec4, stream);
-  return launch_seq_bwd_tiles<M, kSeqCols, 1, 0>(
-      ov, od, iv, id, ct, g_out, g_in, gscratch, n_out, L_out, n_in, L_in, d2,
-      base, difference, symmetric, swap, G, cpl, nc, n_ranges, ws_mode, vec4,
-      stream);
+#define GPSIG_SEQ_BWD(CPL, R, D2)                                            \
+  return launch_seq_bwd_tiles<M, CPL, R, D2, M12>(                           \
+      ov, od, iv, id, no, ni, ct, g_out, g_in, gscratch, n_out, L_out, n_in, \
+      L_in, d2, base, difference, symmetric, swap, G, cpl, nc, n_ranges,     \
+      ws_mode, vec4, stream)
+  if (cpl == 1 && d2 == 16) GPSIG_SEQ_BWD(1, 4, 16);
+  if (cpl == 1) GPSIG_SEQ_BWD(1, 4, 0);
+  GPSIG_SEQ_BWD(kSeqCols, 1, 0);
+#undef GPSIG_SEQ_BWD
+}
+
+template <int M>
+cudaError_t launch_seq_bwd(const float* ov, const float* od, const float* iv,
+                           const float* id, const float* no, const float* ni,
+                           const float* ct, float* g_out, float* g_in,
+                           float* gscratch, int n_out, int L_out, int n_in,
+                           int L_in, int d2, int base, int difference,
+                           int symmetric, int swap, int G, int cpl, int nc,
+                           int n_ranges, int ws_mode, cudaStream_t stream) {
+  return (base == kMatern12 ? launch_seq_bwd_base<M, true>
+                            : launch_seq_bwd_base<M, false>)(
+      ov, od, iv, id, no, ni, ct, g_out, g_in, gscratch, n_out, L_out, n_in,
+      L_in, d2, base, difference, symmetric, swap, G, cpl, nc, n_ranges,
+      ws_mode, stream);
 }
 
 }  // namespace
@@ -590,6 +659,7 @@ cudaError_t launch_seq_bwd(const float* ov, const float* od, const float* iv,
 
 extern "C" int gpsig_seq_bwd(const float* ov, const float* od,
                              const float* iv, const float* id,
+                             const float* no, const float* ni,
                              const float* ct, float* g_out, float* g_in,
                              float* gscratch, int n_out, int L_out, int n_in,
                              int L_in, int d2, int num_levels, int base,
@@ -603,9 +673,11 @@ extern "C" int gpsig_seq_bwd(const float* ov, const float* od,
       G > 32 || cpl <= 0 || cpl > gpsig::kSeqCols || nc < 1 ||
       Ti > static_cast<long long>(G) * cpl * nc || n_ranges <= 0 ||
       ws_mode < 0 || ws_mode > 2 ||
-      (symmetric && (n_out != n_in || L_out != L_in || swap)))
+      (symmetric && (n_out != n_in || L_out != L_in || swap)) ||
+      !gpsig::base_ok(base, no, ni))
     return static_cast<int>(cudaErrorInvalidValue);
-  GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_seq_bwd, ov, od, iv, id, ct,
+  GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_seq_bwd, ov, od, iv, id, no,
+                      ni, ct,
                       g_out, g_in, gscratch, n_out, L_out, n_in, L_in, d2,
                       base, difference, symmetric, swap, G, cpl, nc,
                       n_ranges, ws_mode, static_cast<cudaStream_t>(stream))

@@ -63,9 +63,17 @@
 // observation), so the sweep stops at L - 1 and repeat padding of a request
 // stays exact; without difference all L observations count.
 //
+// matern12 (M12, a compile-time instance of each configuration): the entry
+// is common.cuh's mat12_cross with the outer sequence on the x side and
+// the inner one on the y side, floored by the step norms of both (no, ni:
+// a lane holds its inner steps' next to their rows, an outer step's is a
+// broadcast load) -- the form is symmetric in its two sides, so either
+// argument may go inner.
+//
 // Inputs: outer rows ov, od (N_out, L_out, d2); inner rows iv, id (N_in,
-// L_in, d2).  Output out (M+1, N1, N2), written at (m, o, i), or (m, i, o)
-// when `swap` says the outer rows are the second argument's.
+// L_in, d2); with matern12 their step norms no (N_out, L_out) and ni (N_in,
+// L_in), else null.  Output out (M+1, N1, N2), written at (m, o, i), or
+// (m, i, o) when `swap` says the outer rows are the second argument's.
 #include "common.cuh"
 
 namespace gpsig {
@@ -82,10 +90,11 @@ constexpr long long kSmemMax = 227 * 1024;  // a block's, on the H100
 // GC: the group width G as a compile-time constant (the plans of the main
 // path: 2 for short inner sequences, 32 for long ones), or 0 for any G, so
 // that a row's scans unroll into straight-line code.
-template <int M, int CPL, bool REG, int GC>
+template <int M, int CPL, bool REG, int GC, bool M12>
 __global__ void __launch_bounds__(kSeqThreads)
 seq_fwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
                const float* __restrict__ iv, const float* __restrict__ id,
+               const float* __restrict__ no, const float* __restrict__ ni,
                float* __restrict__ out, float* __restrict__ gcarry,
                int n_out, int L_out, int n_in, int L_in, int d2, int base,
                int difference, int symmetric, int swap, int G_rt, int nc,
@@ -131,6 +140,7 @@ seq_fwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
   // for all of the block's outer sequences when the inner side is one chunk
   float xv[REG ? CPL : 1][kRegD2], xd[REG ? CPL : 1][kRegD2];
   bool valid[CPL];
+  float nin[CPL];  // M12: the step norms of the lane's inner steps
   // not REG: channel c of the lane's inner value row is xin[c * xst] and of
   // its difference row xin[(d2 + c) * xst] (in_smem), or din[c] (through
   // L1, rows too wide for shared memory)
@@ -156,6 +166,8 @@ seq_fwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
           const bool ok = t < L_in;
           const size_t row =
               (static_cast<size_t>(ic) * L_in + (ok ? t : 0)) * d2;
+          nin[j] = M12 && ok ? __ldg(ni + static_cast<size_t>(ic) * L_in + t)
+                             : 0.f;
           if (REG) {
 #pragma unroll
             for (int c = 0; c < kRegD2; ++c) {
@@ -239,11 +251,14 @@ seq_fwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
               dxx[0] = fmaf(b, y, dxx[0]);
             }
           }
+          const float nos =
+              M12 ? __ldg(no + static_cast<size_t>(o) * L_out + s) : 0.f;
           float Mv[CPL];
 #pragma unroll
           for (int j = 0; j < CPL; ++j)
-            Mv[j] = valid[j] ? slot_gram_zz<true>(a00[j], d01[j], d10[j],
-                                                  dxx[j], base, diff)
+            Mv[j] = valid[j] ? slot_gram_zz<true, M12>(a00[j], d01[j], d10[j],
+                                                       dxx[j], base, diff,
+                                                       nos, nin[j])
                              : 0.f;
           // P(R_{k+1})[s, .] for k = 0 .. M-2: in-lane prefix, one group
           // scan of the lane totals, the row carry of the chunks before
@@ -308,9 +323,10 @@ seq_fwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
   }
 }
 
-template <int M, int CPL, bool REG, int GC>
+template <int M, int CPL, bool REG, int GC, bool M12>
 cudaError_t launch_seq_fwd_tiles(const float* ov, const float* od,
-                                 const float* iv, const float* id, float* out,
+                                 const float* iv, const float* id,
+                                 const float* no, const float* ni, float* out,
                                  float* gcarry, int n_out, int L_out,
                                  int n_in, int L_in, int d2, int base,
                                  int difference, int symmetric, int swap,
@@ -341,7 +357,7 @@ cudaError_t launch_seq_fwd_tiles(const float* ov, const float* od,
   smem += in_smem ? in_bytes : 0;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        seq_fwd_kernel<M, CPL, REG, GC>,
+        seq_fwd_kernel<M, CPL, REG, GC, M12>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
@@ -350,10 +366,10 @@ cudaError_t launch_seq_fwd_tiles(const float* ov, const float* od,
   const long long blocks =
       static_cast<long long>((n_out + orng - 1) / orng) * bpr;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  seq_fwd_kernel<M, CPL, REG, GC><<<static_cast<unsigned>(blocks),
-                                    kSeqThreads, static_cast<size_t>(smem),
-                                    stream>>>(
-      ov, od, iv, id, out, gcarry, n_out, L_out, n_in, L_in, d2, base,
+  seq_fwd_kernel<M, CPL, REG, GC, M12><<<static_cast<unsigned>(blocks),
+                                         kSeqThreads,
+                                         static_cast<size_t>(smem), stream>>>(
+      ov, od, iv, id, no, ni, out, gcarry, n_out, L_out, n_in, L_in, d2, base,
       difference, symmetric, swap, G, nc, orng, bpr, rc, carry_smem, o_smem,
       in_smem);
   return cudaGetLastError();
@@ -362,17 +378,18 @@ cudaError_t launch_seq_fwd_tiles(const float* ov, const float* od,
 // d2 <= 16: inner rows in registers, one or two steps a lane, with the
 // group widths of the main path's plans compiled in; wider rows: one step
 // a lane, its row in shared memory where it fits, else read through L1.
-template <int M>
-cudaError_t launch_seq_fwd(const float* ov, const float* od, const float* iv,
-                           const float* id, float* out, float* gcarry,
-                           int n_out, int L_out, int n_in, int L_in, int d2,
-                           int base, int difference, int symmetric, int swap,
-                           int G, int cpl, int nc, int orng,
-                           cudaStream_t stream) {
+template <int M, bool M12>
+cudaError_t launch_seq_fwd_base(const float* ov, const float* od,
+                                const float* iv, const float* id,
+                                const float* no, const float* ni, float* out,
+                                float* gcarry, int n_out, int L_out, int n_in,
+                                int L_in, int d2, int base, int difference,
+                                int symmetric, int swap, int G, int cpl,
+                                int nc, int orng, cudaStream_t stream) {
 #define GPSIG_SEQ_FWD(CPL, REG, GC)                                          \
-  return launch_seq_fwd_tiles<M, CPL, REG, GC>(                              \
-      ov, od, iv, id, out, gcarry, n_out, L_out, n_in, L_in, d2, base,       \
-      difference, symmetric, swap, G, nc, orng, stream)
+  return launch_seq_fwd_tiles<M, CPL, REG, GC, M12>(                         \
+      ov, od, iv, id, no, ni, out, gcarry, n_out, L_out, n_in, L_in, d2,     \
+      base, difference, symmetric, swap, G, nc, orng, stream)
   if (d2 <= kRegD2 && cpl == 2 && G == 2) GPSIG_SEQ_FWD(2, true, 2);
   if (d2 <= kRegD2 && cpl == 2 && G == 32) GPSIG_SEQ_FWD(2, true, 32);
   if (d2 <= kRegD2 && cpl == 2) GPSIG_SEQ_FWD(2, true, 0);
@@ -382,13 +399,27 @@ cudaError_t launch_seq_fwd(const float* ov, const float* od, const float* iv,
   return cudaErrorInvalidValue;
 }
 
+template <int M>
+cudaError_t launch_seq_fwd(const float* ov, const float* od, const float* iv,
+                           const float* id, const float* no, const float* ni,
+                           float* out, float* gcarry, int n_out, int L_out,
+                           int n_in, int L_in, int d2, int base,
+                           int difference, int symmetric, int swap, int G,
+                           int cpl, int nc, int orng, cudaStream_t stream) {
+  return (base == kMatern12 ? launch_seq_fwd_base<M, true>
+                            : launch_seq_fwd_base<M, false>)(
+      ov, od, iv, id, no, ni, out, gcarry, n_out, L_out, n_in, L_in, d2,
+      base, difference, symmetric, swap, G, cpl, nc, orng, stream);
+}
+
 }  // namespace
 }  // namespace gpsig
 
 // gcarry: the row carries past kCarryBytes a block, (blocks, 4 warps, 2, To,
 // M-1, 32 / G) floats; may be null otherwise.
 extern "C" int gpsig_seq_fwd(const float* ov, const float* od,
-                             const float* iv, const float* id, float* out,
+                             const float* iv, const float* id,
+                             const float* no, const float* ni, float* out,
                              float* gcarry, int n_out, int L_out, int n_in,
                              int L_in, int d2, int num_levels, int base,
                              int difference, int symmetric, int swap, int G,
@@ -398,10 +429,12 @@ extern "C" int gpsig_seq_fwd(const float* ov, const float* od,
   if (n_out <= 0 || n_in <= 0 || L_out <= 0 || L_in <= 0 || d2 <= 0 ||
       !pow2 || G > 32 || cpl < 1 || cpl > 2 || nc < 0 || orng < 1 ||
       static_cast<long long>(G) * cpl * nc < Ti ||
-      (symmetric && (n_out != n_in || L_out != L_in || swap)))
+      (symmetric && (n_out != n_in || L_out != L_in || swap)) ||
+      !gpsig::base_ok(base, no, ni))
     return static_cast<int>(cudaErrorInvalidValue);
-  GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_seq_fwd, ov, od, iv, id, out,
-                      gcarry, n_out, L_out, n_in, L_in, d2, base, difference,
+  GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_seq_fwd, ov, od, iv, id, no,
+                      ni, out, gcarry, n_out, L_out, n_in, L_in, d2, base,
+                      difference,
                       symmetric, swap, G, cpl, nc, orng,
                       static_cast<cudaStream_t>(stream))
 }
@@ -419,13 +452,31 @@ __global__ void expm1_probe_kernel(const float4* __restrict__ args,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float4 a = args[i];
-  float p[4], pf[4];
+  float p[6], pf[6];
   const float g = slot_gram_zz_partials<true>(a.x, a.y, a.z, a.w, kRbf, true,
                                               p);
   const float gf = slot_gram_zz_partials<false>(a.x, a.y, a.z, a.w, kRbf,
                                                 true, pf);
   out[2 * i] = make_float4(expm1_acc(a.x), expm1f(a.x), g, gf);
   out[2 * i + 1] = make_float4(p[1], p[2], p[3], pf[1]);
+}
+
+// Test hook, not a kernel of any path: for args[i] = (a00, d01, d10, dxx,
+// nx, ny, -, -) writes out[i] = (mat12_cross as K1, K3 and K5 evaluate it,
+// its value and six partials dM/d(a00, d01, d10, dxx, nx, ny) as K2 takes
+// them (expm1_acc), the value as K4 and K6 take it (expm1f)), so that the
+// device algebra is held against float64 (chip_smoke.py phase 9a).
+__global__ void m12_probe_kernel(const float* __restrict__ args,
+                                 float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float* a = args + 8 * static_cast<size_t>(i);
+  float p[6], pf[6];
+  float* o = out + 9 * static_cast<size_t>(i);
+  o[0] = mat12_cross<true>(a[0], a[1], a[2], a[3], a[4], a[5]);
+  o[1] = mat12_cross_partials<true>(a[0], a[1], a[2], a[3], a[4], a[5], p);
+  o[8] = mat12_cross_partials<false>(a[0], a[1], a[2], a[3], a[4], a[5], pf);
+  for (int k = 0; k < 6; ++k) o[2 + k] = p[k];
 }
 }  // namespace
 }  // namespace gpsig
@@ -437,5 +488,14 @@ extern "C" int gpsig_expm1_probe(const float* args, float* out, int n,
                               static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(args), reinterpret_cast<float4*>(out),
       n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gpsig_m12_probe(const float* args, float* out, int n,
+                               void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  gpsig::m12_probe_kernel<<<(n + 255) / 256, 256, 0,
+                            static_cast<cudaStream_t>(stream)>>>(args, out,
+                                                                 n);
   return static_cast<int>(cudaGetLastError());
 }

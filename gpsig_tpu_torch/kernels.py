@@ -417,3 +417,6 @@ def _variant(name: str, base: str):
 SignatureLinear = _variant("SignatureLinear", "linear")
 SignatureRBF = _variant("SignatureRBF", "rbf")
 SignatureGauss = SignatureRBF
+SignatureMatern12 = _variant("SignatureMatern12", "matern12")
+SignatureLaplace = SignatureMatern12
+SignatureExponential = SignatureMatern12

@@ -43,28 +43,31 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # (name, argtypes): pointers and the stream as c_void_p, sizes as c_int
 _SIGNATURES = {
-    # vl, dl, vr, dr, out, lt, nz, d2, num_levels, base, increments,
+    # (the two step-norm arrays after the rows: matern12's, else null)
+    # vl, dl, vr, dr, nl, nr, out, lt, nz, d2, num_levels, base, increments,
     # symmetric, stream
-    "gpsig_kzz_fwd": [_P] * 5 + [_I] * 7 + [_P],
-    # vl, dl, xv, xd, out, lt, nz, n_ex, L, d2, num_levels, base,
+    "gpsig_kzz_fwd": [_P] * 7 + [_I] * 7 + [_P],
+    # vl, dl, xv, xd, nz, nt, out, lt, nz, n_ex, L, d2, num_levels, base,
     # increments, difference, stream
-    "gpsig_kzx_fwd": [_P] * 5 + [_I] * 9 + [_P],
-    # vl, dl, vr, dr, ct, out, lt, nz, d2, num_levels, base, increments,
-    # symmetric, ranges, strips per range, stream
-    "gpsig_kzz_bwd": [_P] * 6 + [_I] * 9 + [_P],
-    # vl, dl, xv, xd, ct, gz, gx, ck, lt, nz, n_ex, L, d2, num_levels,
-    # base, increments, difference, t_chunk, stage_rows, stream
-    "gpsig_kzx_bwd": [_P] * 8 + [_I] * 11 + [_P],
-    # ov, od, iv, id, out, carry, n_out, L_out, n_in, L_in, d2, num_levels,
-    # base, difference, symmetric, swap, group, cpl, chunks, outer range,
-    # stream
-    "gpsig_seq_fwd": [_P] * 6 + [_I] * 14 + [_P],
-    # ov, od, iv, id, ct, g_out, g_in, scratch, n_out, L_out, n_in, L_in,
-    # d2, num_levels, base, difference, symmetric, swap, group, cpl,
+    "gpsig_kzx_fwd": [_P] * 7 + [_I] * 9 + [_P],
+    # vl, dl, vr, dr, nl, nr, ct, out, lt, nz, d2, num_levels, base,
+    # increments, symmetric, ranges, strips per range, stream
+    "gpsig_kzz_bwd": [_P] * 8 + [_I] * 9 + [_P],
+    # vl, dl, xv, xd, nz, nt, ct, gz, gx, ck, lt, nz, n_ex, L, d2,
+    # num_levels, base, increments, difference, t_chunk, stage_rows, stream
+    "gpsig_kzx_bwd": [_P] * 10 + [_I] * 11 + [_P],
+    # ov, od, iv, id, no, ni, out, carry, n_out, L_out, n_in, L_in, d2,
+    # num_levels, base, difference, symmetric, swap, group, cpl, chunks,
+    # outer range, stream
+    "gpsig_seq_fwd": [_P] * 8 + [_I] * 14 + [_P],
+    # ov, od, iv, id, no, ni, ct, g_out, g_in, scratch, n_out, L_out, n_in,
+    # L_in, d2, num_levels, base, difference, symmetric, swap, group, cpl,
     # chunks, ranges, workspace mode, stream
-    "gpsig_seq_bwd": [_P] * 8 + [_I] * 15 + [_P],
+    "gpsig_seq_bwd": [_P] * 10 + [_I] * 15 + [_P],
     # args (n, 4), out (n, 4), n, stream: a test hook of common.cuh's expm1
     "gpsig_expm1_probe": [_P] * 2 + [_I] + [_P],
+    # args (n, 8), out (n, 9), n, stream: a test hook of its matern12
+    "gpsig_m12_probe": [_P] * 2 + [_I] + [_P],
 }
 
 

@@ -1,9 +1,9 @@
 """Static base kernels as pure functions (``gpsig_tpu/ops/base_kernels.py``).
 
-The port carries the two bases its hand kernels cover, rbf and linear.  The
-other nine bases of the JAX package raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.  Contractions run in full f32 on the card:
-``config.py`` keeps TF32 off.
+The port carries the three bases its hand kernels cover: rbf, linear and
+matern12 (exp(-r)).  The other eight bases of the JAX package raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+Contractions run in full f32 on the card: ``config.py`` keeps TF32 off.
 
 All kernels take ``X: (..., n, d)`` and ``X2: (..., m, d)`` (or None for the
 symmetric case) and return ``(..., n, m)``.
@@ -13,13 +13,10 @@ from __future__ import annotations
 
 import torch
 
-_OTHER_BASES = "ROADMAP Queue 1, item 6 (the other base kernels)"
-_NOT_PORTED = {
-    "matern12": "ROADMAP Queue 1, item 2 (matern12 in K1-K6)",
-    **{name: _OTHER_BASES for name in (
-        "cosine", "poly", "mix", "matern32", "matern52", "spectral_rbf",
-        "spectral_exp", "spectral_mixed")},
-}
+_NOT_PORTED = {name: "ROADMAP Queue 1, item 6 (the other base kernels)"
+               for name in ("cosine", "poly", "mix", "matern32", "matern52",
+                            "spectral_rbf", "spectral_exp",
+                            "spectral_mixed")}
 
 
 def _inner(X, X2):
@@ -37,6 +34,12 @@ def square_dist(X, X2=None):
     return torch.clamp(d, min=0.0)
 
 
+def euclid_dist(X, X2=None):
+    """Pairwise Euclidean distance; the sqrt guard is a normal f32 (1e-40
+    is subnormal), so sqrt's VJP at coincident points stays finite."""
+    return torch.sqrt(torch.clamp(square_dist(X, X2), min=1e-36))
+
+
 def linear(params, X, X2=None):
     return _inner(X, X if X2 is None else X2)
 
@@ -45,7 +48,11 @@ def rbf(params, X, X2=None):
     return torch.exp(-square_dist(X, X2) / 2.0)
 
 
-BASE_KERNELS = {"linear": linear, "rbf": rbf}
+def matern12(params, X, X2=None):
+    return torch.exp(-euclid_dist(X, X2))
+
+
+BASE_KERNELS = {"linear": linear, "rbf": rbf, "matern12": matern12}
 
 
 def _check(name: str) -> None:
@@ -67,12 +74,14 @@ def get(name: str):
 
 
 def init_params(name: str, *, dtype=None, device=None):
-    """(raw_params, bijectors) of a base kernel; rbf and linear have none."""
+    """(raw_params, bijectors) of a base kernel; rbf, linear and matern12
+    have none."""
     _check(name)
     return {}, {}
 
 
 def static_params(name: str) -> dict:
-    """Non-trainable base-kernel configuration; rbf and linear have none."""
+    """Non-trainable base-kernel configuration; rbf, linear and matern12
+    have none."""
     _check(name)
     return {}

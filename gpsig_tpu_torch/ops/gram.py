@@ -1,10 +1,12 @@
 """Cancellation-free increment Grams and batched level recursions.
 
 The subset of ``gpsig_tpu/ops/gram.py`` that the port runs: the f32
-Kxx-diagonal leg (closed-form rbf/linear increment Grams, the level
-recursion with exclusive cumsums as triangular-ones matmuls, the telescoped
-exact level 1 of a diagonal and of a cross Gram) and the accurate f32
-``exp``/``expm1`` that the plain versions of the kernels use.
+Kxx-diagonal leg (closed-form rbf/linear/matern12 increment Grams, the
+level recursion with exclusive cumsums as triangular-ones matmuls, the
+telescoped exact level 1 of a diagonal and of a cross Gram), the accurate
+f32 ``exp``/``expm1`` that the plain versions of the kernels use, and the
+dots-level matern12 closed forms with their explicit partials, the same
+formulas as ``csrc/common.cuh``'s.
 
 Where the JAX package takes a matmul ``precision`` argument, the port has
 none: ``config.py`` keeps every f32 matmul in full f32.
@@ -168,10 +170,238 @@ def _rbf_increment_diag(X):
     return _rbf_increment_pair(X, X)
 
 
+# ---------------------------------------------------------------------------
+# matern12 (exp(-r)): cancellation-free corner-distance algebra
+# ---------------------------------------------------------------------------
+
+_TINY = 1e-30  # floor of every denominator (``radius_gaps_from_dots``)
+
+
+def _max(a, b):
+    """``maximum`` of a tensor and a tensor or number; its gradient splits
+    at a tie, as JAX's does."""
+    return torch.maximum(a, torch.as_tensor(b, dtype=a.dtype,
+                                            device=a.device))
+
+
+def radius_gaps_from_dots(A00, d01, d10, dxx, ndx, ndy, *, tiny_sq):
+    """Cancellation-free corner-distance geometry ``(r00, g01, g10,
+    delta)`` from the four corner inner-product gaps (``A00 = -r00^2/2``,
+    ``d01``/``d10`` the one-step gaps, ``dxx = <dx, dy>``) and the step
+    norms ``ndx``/``ndy`` as triangle-inequality floors on the
+    denominators:
+
+        g01 = -2 d01 / (r01 + r00)          g10 = -2 d10 / (r10 + r00)
+        u   = 2 (d01 + dxx) / (r10 + r11) + 2 d01 / (r00 + r01)
+        delta = -2 dxx / (r11 + r01) - 2 d10 u / ((r11 + r01)(r10 + r00))
+
+    (``gpsig_tpu/ops/gram.py:279``)."""
+    r00sq = _max(-2.0 * A00, 0.0)
+    r00 = torch.sqrt(_max(r00sq, tiny_sq))
+
+    def radius(s):
+        return torch.sqrt(_max(r00sq + s, tiny_sq))
+
+    r01 = radius(-2.0 * d01)
+    r10 = radius(-2.0 * d10)
+    r11 = radius(-2.0 * (d01 + d10 + dxx))
+
+    def over(num, den, floor):
+        return num / _max(den, _max(floor, _TINY))
+
+    g01 = over(-2.0 * d01, r01 + r00, ndy)
+    g10 = over(-2.0 * d10, r10 + r00, ndx)
+    u = (over(2.0 * (d01 + dxx), r10 + r11, ndy)
+         + over(2.0 * d01, r00 + r01, ndy))
+    delta = (over(-2.0 * dxx, r11 + r01, ndx)
+             - over(2.0 * d10, r10 + r00, ndx) * over(u, r11 + r01, ndx))
+    return r00, g01, g10, delta
+
+
+def mat12_cross_from_dots(A00, d01, d10, dxx, ndx, ndy, *, exp=exp_accurate,
+                          expm1=_expm1_stable, tiny_sq=1e-36):
+    """matern12 second-difference increment Gram from corner dots:
+    ``exp(-r00) (exp(-(g01 + g10)) expm1(-delta) + expm1(-g01)
+    expm1(-g10))`` (``gpsig_tpu/ops/gram.py:318``)."""
+    r00, g01, g10, delta = radius_gaps_from_dots(
+        A00, d01, d10, dxx, ndx, ndy, tiny_sq=tiny_sq)
+    return exp(-r00) * (exp(-(g01 + g10)) * expm1(-delta)
+                        + expm1(-g01) * expm1(-g10))
+
+
+def mat12_onesided_from_dots(A00, d10, ndx, *, exp=exp_accurate,
+                             expm1=_expm1_stable, tiny_sq=1e-36):
+    """One-sided matern12 difference ``k(x', y) - k(x, y)`` from dots:
+    ``exp(-r00) expm1(-g10)``, ``g10 = -2 d10 / (r10 + r00)`` floored by
+    the step norm (``gpsig_tpu/ops/gram.py:332``)."""
+    r00sq = _max(-2.0 * A00, 0.0)
+    r00 = torch.sqrt(_max(r00sq, tiny_sq))
+    r10 = torch.sqrt(_max(r00sq - 2.0 * d10, tiny_sq))
+    g10 = -2.0 * d10 / _max(r10 + r00, _max(ndx, _TINY))
+    return exp(-r00) * expm1(-g10)
+
+
+def mat12_plain_from_dots(A00, *, exp=exp_accurate, tiny_sq=1e-36):
+    """Plain matern12 Gram entry ``exp(-r00)`` from ``A00 = -r00^2/2``
+    (``gpsig_tpu/ops/gram.py:346``)."""
+    r00 = torch.sqrt(_max(_max(-2.0 * A00, 0.0), tiny_sq))
+    return exp(-r00)
+
+
+def _max_w(a, b):
+    """Weight of ``a`` in ``maximum(a, b)``'s gradient: 1 where it wins,
+    1/2 at a tie, 0 where it loses."""
+    b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
+    return (a > b).to(a.dtype) + 0.5 * (a == b).to(a.dtype)
+
+
+def mat12_cross_partials(A00, d01, d10, dxx, ndx, ndy, *, tiny_sq=1e-36):
+    """``mat12_cross_from_dots`` and its six partials dM/d(A00, d01, d10,
+    dxx, ndx, ndy), written out: the reverse sweep of the forward's
+    quotients, denominators, radii and floors, with a tie of a ``maximum``
+    split in halves as JAX's VJP splits it.  The same formulas as
+    ``csrc/common.cuh::mat12_cross_partials``; f32 uses the accurate exp and
+    the Taylor expm1, other dtypes the native ones."""
+    exp, expm1 = exp_accurate, _expm1_stable
+    x0 = -2.0 * A00
+    r00sq = _max(x0, 0.0)
+    s00, s01 = r00sq, r00sq + -2.0 * d01
+    s10, s11 = r00sq + -2.0 * d10, r00sq + -2.0 * (d01 + d10 + dxx)
+    r00, r01, r10, r11 = (torch.sqrt(_max(s, tiny_sq))
+                          for s in (s00, s01, s10, s11))
+    fx, fy = _max(ndx, _TINY), _max(ndy, _TINY)
+    n1, n2, n3, n5 = r01 + r00, r10 + r00, r10 + r11, r11 + r01
+    D1, D2, D3, D5 = (torch.maximum(n, f) for n, f in
+                      ((n1, fy), (n2, fx), (n3, fy), (n5, fx)))
+    g01, q2 = -2.0 * d01 / D1, 2.0 * d10 / D2
+    g10 = -2.0 * d10 / D2
+    ua, ub = 2.0 * (d01 + dxx) / D3, 2.0 * d01 / D1
+    u = ua + ub
+    qd1, qu = -2.0 * dxx / D5, u / D5
+    delta = qd1 - q2 * qu
+    E0, eg = exp(-r00), exp(-(g01 + g10))
+    em_d, e1, e2 = expm1(-delta), expm1(-g01), expm1(-g10)
+    M = E0 * (eg * em_d + e1 * e2)
+    # dM/d(g01, g10, delta); dM/dr00 has M's own -M
+    Gg01 = -E0 * (eg * em_d + (e1 + 1.0) * e2)
+    Gg10 = -E0 * (eg * em_d + (e2 + 1.0) * e1)
+    Gd = -E0 * eg * (em_d + 1.0)
+    dq2, dqu = -Gd * qu, -Gd * q2  # delta = qd1 - q2 qu
+    du = dqu / D5
+    dD5 = -(dqu * qu + Gd * qd1) / D5
+    dD3 = -du * ua / D3
+    dD1 = -(du * ub + Gg01 * g01) / D1
+    dD2 = -(Gg10 * g10 + dq2 * q2) / D2
+    dd01 = 2.0 * du / D3 + (2.0 * du - 2.0 * Gg01) / D1
+    dd10 = (2.0 * dq2 - 2.0 * Gg10) / D2
+    ddxx = 2.0 * du / D3 - 2.0 * Gd / D5
+    # denominators: to the radii where the sum wins, to the floors else
+    w1, w2, w3, w5 = (_max_w(n, f) for n, f in
+                      ((n1, fy), (n2, fx), (n3, fy), (n5, fx)))
+    dr00 = -M + dD1 * w1 + dD2 * w2
+    dr01 = dD1 * w1 + dD5 * w5
+    dr10 = dD2 * w2 + dD3 * w3
+    dr11 = dD3 * w3 + dD5 * w5
+    dfx = dD2 * _max_w(fx, n2) + dD5 * _max_w(fx, n5)
+    dfy = dD1 * _max_w(fy, n1) + dD3 * _max_w(fy, n3)
+    # radii r = sqrt(max(s, tiny_sq))
+    ds00, ds01, ds10, ds11 = (dr * 0.5 / r * _max_w(s, tiny_sq) for dr, r, s in
+                              ((dr00, r00, s00), (dr01, r01, s01),
+                               (dr10, r10, s10), (dr11, r11, s11)))
+    dr00sq = ds00 + ds01 + ds10 + ds11
+    return M, (-2.0 * dr00sq * _max_w(x0, 0.0), dd01 - 2.0 * (ds01 + ds11),
+               dd10 - 2.0 * (ds10 + ds11), ddxx - 2.0 * ds11,
+               dfx * _max_w(ndx, _TINY), dfy * _max_w(ndy, _TINY))
+
+
+def mat12_onesided_partials(A00, d10, ndx, *, tiny_sq=1e-36):
+    """``mat12_onesided_from_dots`` and its partials dM/d(A00, d10, ndx),
+    written out as ``mat12_cross_partials`` (``csrc/common.cuh``)."""
+    exp, expm1 = exp_accurate, _expm1_stable
+    x0 = -2.0 * A00
+    r00sq = _max(x0, 0.0)
+    s10 = r00sq - 2.0 * d10
+    r00, r10 = torch.sqrt(_max(r00sq, tiny_sq)), torch.sqrt(_max(s10, tiny_sq))
+    fx = _max(ndx, _TINY)
+    n2 = r10 + r00
+    D2 = torch.maximum(n2, fx)
+    g10 = -2.0 * d10 / D2
+    E0, e2 = exp(-r00), expm1(-g10)
+    M = E0 * e2
+    Gg10 = -E0 * (e2 + 1.0)
+    dD2 = -Gg10 * g10 / D2
+    w2 = _max_w(n2, fx)
+    ds10 = dD2 * w2 * 0.5 / r10 * _max_w(s10, tiny_sq)
+    dr00sq = (dD2 * w2 - M) * 0.5 / r00 * _max_w(r00sq, tiny_sq) + ds10
+    return M, (-2.0 * dr00sq * _max_w(x0, 0.0),
+               -2.0 * Gg10 / D2 - 2.0 * ds10,
+               dD2 * _max_w(fx, n2) * _max_w(ndx, _TINY))
+
+
+def mat12_plain_partials(A00, *, tiny_sq=1e-36):
+    """``mat12_plain_from_dots`` and dM/dA00."""
+    x0 = -2.0 * A00
+    r00sq = _max(x0, 0.0)
+    r00 = torch.sqrt(_max(r00sq, tiny_sq))
+    M = exp_accurate(-r00)
+    return M, (M / r00 * _max_w(r00sq, tiny_sq) * _max_w(x0, 0.0),)
+
+
+def _radius_gaps(Xa, Xb, spec, bcast_a, bcast_b):
+    """Corner-distance geometry ``(r00, g01, g10, delta)`` of the steps of
+    Xa against those of Xb (``gpsig_tpu/ops/gram.py:352``): the
+    ``_rbf_gaps`` inner-product terms and the guarded step norms, through
+    ``radius_gaps_from_dots``.  Zero steps (repeat padding) make every
+    numerator exactly 0.  The norms' sqrt guard is a normal float of the
+    dtype: 1e-40 is subnormal in f32, and sqrt's VJP through it blows up."""
+    tiny_sq = 1e-40 if Xa.dtype == torch.float64 else 1e-36
+    dXa = Xa[:, 1:] - Xa[:, :-1]
+    dXb = Xb[:, 1:] - Xb[:, :-1]
+    ndx = bcast_a(torch.sqrt(_max(torch.sum(torch.square(dXa), dim=-1),
+                                  tiny_sq)))
+    ndy = bcast_b(torch.sqrt(_max(torch.sum(torch.square(dXb), dim=-1),
+                                  tiny_sq)))
+    A00, d01, d10, dxx = _rbf_gaps(Xa, Xb, spec, bcast_a, bcast_b)
+    return radius_gaps_from_dots(A00, d01, d10, dxx, ndx, ndy,
+                                 tiny_sq=tiny_sq)
+
+
+def _matern12_increment_core(Xa, Xb, spec, bcast_a, bcast_b):
+    """Cancellation-free matern12 increment Gram ``exp(-r00) (exp(-(g01 +
+    g10)) expm1(-delta) + expm1(-g01) expm1(-g10))`` over the
+    ``_radius_gaps`` geometry (``gpsig_tpu/ops/gram.py:407``)."""
+    r00, g01, g10, delta = _radius_gaps(Xa, Xb, spec, bcast_a, bcast_b)
+    return exp_accurate(-r00) * (
+        exp_accurate(-(g01 + g10)) * _expm1_stable(-delta)
+        + _expm1_stable(-g01) * _expm1_stable(-g10))
+
+
+def _matern12_increment_cross(Xa, Xb):
+    """(A, L1, d), (B, L2, d) -> (A, B, L1-1, L2-1) matern12 increment
+    Gram."""
+    return _matern12_increment_core(
+        Xa, Xb, "asd,btd->abst",
+        lambda v: v[:, None, :, None], lambda v: v[None, :, None, :])
+
+
+def _matern12_increment_pair(Xa, Xb):
+    """(N, La, d), (N, Lb, d) -> (N, La-1, Lb-1) per-example matern12
+    increment Grams."""
+    return _matern12_increment_core(
+        Xa, Xb, "nsd,ntd->nst", lambda v: v[:, :, None],
+        lambda v: v[:, None, :])
+
+
+def _matern12_increment_diag(X):
+    return _matern12_increment_pair(X, X)
+
+
 INCREMENT_GRAMS = {
     "linear": (_linear_increment_cross, _linear_increment_diag,
                _linear_increment_pair),
     "rbf": (_rbf_increment_cross, _rbf_increment_diag, _rbf_increment_pair),
+    "matern12": (_matern12_increment_cross, _matern12_increment_diag,
+                 _matern12_increment_pair),
 }
 
 

@@ -42,6 +42,12 @@ backward takes the cotangent folded onto the upper triangle (``_fold``,
 ``inducing_pallas.py:497-501``).  ``signature_cuda`` shares ``_mirror`` and
 ``_fold``.
 
+matern12 (exp(-r)) launches each kernel's matern12 instance with the
+step norms of the difference rows (``_step_norms``): the closed form
+floors its denominators by them, and the backward kernels chain their
+cotangents into the difference rows themselves (``_norm_chain`` is the
+plain versions' counterpart).
+
 Each wrapper's docstring says what bounds its kernel on the H100 and what
 the design does about it; the header of its ``.cu`` file has the detail.
 """
@@ -55,8 +61,8 @@ from . import gram
 from .signature import (cumsum_exclusive,
                         signature_kern_tens_vs_seq_first_order, tensor_kern)
 
-SUPPORTED_BASES = ("rbf", "linear")
-_BASE_IDS = {"rbf": 0, "linear": 1}  # csrc/common.cuh::Base
+SUPPORTED_BASES = ("rbf", "linear", "matern12")
+_BASE_IDS = {"rbf": 0, "linear": 1, "matern12": 2}  # csrc/common.cuh::Base
 _ZZ_TILE = 32  # csrc/common.cuh::kZzTile: K1's and K2's tile edge
 _ZZ_CB = 16  # csrc/common.cuh::kZzCB: channels a staged row block holds
 # K2 gives each strip of tile rows at most _K2_RANGES partial slabs
@@ -114,6 +120,33 @@ def _prep_seq(X, base: str, lhs: bool = False):
     V = _aug_value(X, base, lhs=lhs)
     D = _aug_diff(X, Xn, base, lhs=lhs)
     return V.contiguous(), D.contiguous()
+
+
+def _step_norms(D, base: str):
+    """Euclidean norms of the true channels of augmented difference rows
+    (..., d2) -> (...), for matern12 (None for the other bases): the two
+    norm-augmentation channels are left out, as ``_aug_mask`` leaves them
+    (``signature_pallas.py:210``).  matern12 floors its denominators by
+    them and, with a zero step, ``seq_bwd`` masks the cotangent."""
+    if base != "matern12":
+        return None
+    return torch.linalg.vector_norm(D[..., :-2], dim=-1)
+
+
+def _norm_chain(g_D, D, W_n, n):
+    """``g_D[..., :d] += D[..., :d] W_n / max(n, 1e-30)``: a step-norm
+    cotangent W_n (...) into the gradient of its difference rows (...,
+    d2), as ``_norm_chain_col`` / ``_norm_chain_row`` do
+    (``signature_pallas.py:218-238``); the augmentation channels get
+    none."""
+    chain = D[..., :-2] * (W_n / torch.clamp(n, min=1e-30))[..., None]
+    return torch.cat([g_D[..., :-2] + chain, g_D[..., -2:]], dim=-1)
+
+
+def _ptr(t) -> int:
+    """A tensor's device pointer, 0 for None (a kernel argument that the
+    base does not read)."""
+    return 0 if t is None else t.data_ptr()
 
 
 def _check_config(num_levels: int, base: str, lt: int):
@@ -187,19 +220,8 @@ def kzz_fwd_plain(Vl, Dl, Vr, Dr, *, num_levels: int, base: str,
     ``(num_levels+1, nZ, nZ)``, mirrored from its upper triangle when
     ``symmetric``.  f32 uses ``gram.exp_accurate`` and the Taylor
     ``expm1``; f64 the native exp/expm1."""
-    def dots(A, B):
-        return torch.matmul(A, B.transpose(1, 2))
-
-    if base == "linear":
-        G = dots(Dl, Dr) if increments else dots(Vl, Vr)
-    elif not increments:
-        G = gram.exp_accurate(dots(Vl, Vr))
-    else:
-        d01, d10 = dots(Vl, Dr), dots(Dl, Vr)
-        expm1 = gram._expm1_stable
-        G = gram.exp_accurate(dots(Vl, Vr)) * (
-            expm1(d01 + d10 + dots(Dl, Dr)) - expm1(d01) - expm1(d10)
-        )
+    G = _zz_gram(Vl, Dl, Vr, Dr, base, increments,
+                 _zz_norms(Dl, Dr, base, increments))
     out = tensor_kern(G, num_levels)
     return _mirror(out) if symmetric else out
 
@@ -232,12 +254,13 @@ def kzz_fwd(Vl, Dl, Vr, Dr, *, num_levels: int, base: str,
                              symmetric=symmetric)
     _check_cuda("kzz_fwd", Vl, Dl, Vr, Dr)
     Vl, Dl, Vr, Dr = (t.contiguous() for t in (Vl, Dl, Vr, Dr))
+    nl, nr = _step_norms(Dl, base), _step_norms(Dr, base)
     out = torch.empty((num_levels + 1, nz, nz), dtype=torch.float32,
                       device=Vl.device)
     _launch("gpsig_kzz_fwd", num_levels, Vl.data_ptr(), Dl.data_ptr(),
-            Vr.data_ptr(), Dr.data_ptr(), out.data_ptr(), lt, nz, d2,
-            num_levels, _BASE_IDS[base], int(increments), int(symmetric),
-            _stream(Vl))
+            Vr.data_ptr(), Dr.data_ptr(), _ptr(nl), _ptr(nr), out.data_ptr(),
+            lt, nz, d2, num_levels, _BASE_IDS[base], int(increments),
+            int(symmetric), _stream(Vl))
     kzz_fwd.launches += 1
     return out
 
@@ -284,43 +307,87 @@ def _slot_dots(A, B):
     return torch.matmul(A, B.transpose(1, 2))
 
 
-def _zz_partials(Vl, Dl, Vr, Dr, base: str, increments: bool,
+def _zz_norms(Dl, Dr, base: str, increments: bool):
+    """matern12's step norms of Kzz's lhs and rhs rows, broadcast to the
+    slot Grams' (lt, nZ, nZ); None for the other bases and without
+    increments."""
+    if base != "matern12" or not increments:
+        return None
+    return _step_norms(Dl, base)[:, :, None], _step_norms(Dr, base)[:, None]
+
+
+def _zz_gram(Vl, Dl, Vr, Dr, base: str, increments: bool, norms=None,
+             dots=_slot_dots):
+    """Slot Grams G (lt, nZ, nZ): ``common.cuh::slot_gram_zz`` (matern12:
+    ``mat12_cross``) in torch ops (``_slot_gram_zz``,
+    ``inducing_pallas.py:153``).
+    ``dots`` contracts the feature axis; the seq x seq plain versions pass
+    their own, for (N1, N2, L1, L2) increment Grams.  ``norms``: matern12's
+    step norms of the lhs and rhs rows, broadcast to G's shape."""
+    if base == "linear":
+        return dots(Dl, Dr) if increments else dots(Vl, Vr)
+    a00 = dots(Vl, Vr)
+    if base == "matern12":
+        if not increments:
+            return gram.mat12_plain_from_dots(a00)
+        return gram.mat12_cross_from_dots(a00, dots(Vl, Dr), dots(Dl, Vr),
+                                          dots(Dl, Dr), *norms)
+    if not increments:
+        return gram.exp_accurate(a00)
+    d01, d10 = dots(Vl, Dr), dots(Dl, Vr)
+    expm1 = gram._expm1_stable
+    return gram.exp_accurate(a00) * (
+        expm1(d01 + d10 + dots(Dl, Dr)) - expm1(d01) - expm1(d10))
+
+
+def _zz_partials(Vl, Dl, Vr, Dr, base: str, increments: bool, norms=None,
                  dots=_slot_dots):
     """Slot Grams G (lt, nZ, nZ) and their partials dG/d(A00, d01, d10,
-    dxx), None where zero: ``common.cuh::slot_gram_zz_partials`` in torch
-    ops (``_slot_gram_zz_bwd``, ``inducing_pallas.py:175``, before the slot
-    cotangent).  ``dots`` contracts the feature axis; the seq x seq plain
-    versions pass their own, for (N1, N2, L1, L2) increment Grams."""
+    dxx, nx, ny), None where zero -- nx, ny the step norms of the lhs and
+    rhs rows (matern12's floors): ``common.cuh::slot_gram_zz_partials``
+    (matern12: ``mat12_cross_partials``) in torch ops (``_slot_gram_zz_bwd``,
+    ``inducing_pallas.py:175``, before the slot cotangent); ``dots`` and
+    ``norms`` as ``_zz_gram``'s."""
 
     exp, expm1 = gram.exp_accurate, gram._expm1_stable
     if base == "linear":
         if increments:
-            return dots(Dl, Dr), (None, None, None, 1.0)
-        return dots(Vl, Vr), (1.0, None, None, None)
+            return dots(Dl, Dr), (None, None, None, 1.0, None, None)
+        return dots(Vl, Vr), (1.0, None, None, None, None, None)
+    if base == "matern12":
+        if not increments:
+            G, (pa,) = gram.mat12_plain_partials(dots(Vl, Vr))
+            return G, (pa, None, None, None, None, None)
+        return gram.mat12_cross_partials(dots(Vl, Vr), dots(Vl, Dr),
+                                         dots(Dl, Vr), dots(Dl, Dr), *norms)
     eA = exp(dots(Vl, Vr))
     if not increments:
-        return eA, (eA, None, None, None)
+        return eA, (eA, None, None, None, None, None)
     d01, d10 = dots(Vl, Dr), dots(Dl, Vr)
     es, e01, e10 = expm1(d01 + d10 + dots(Dl, Dr)), expm1(d01), expm1(d10)
     G = eA * (es - e01 - e10)
-    return G, (G, eA * (es - e01), eA * (es - e10), eA * (es + 1.0))
+    return G, (G, eA * (es - e01), eA * (es - e10), eA * (es + 1.0), None,
+               None)
 
 
 def kzz_bwd_plain(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
                   increments: bool, symmetric: bool = False):
     """Plain torch version of K2: the VJP of ``kzz_fwd_plain`` (with the
     same ``symmetric``) under the cotangent ``ct`` (num_levels+1, nZ, nZ)
-    -> (g_vl, g_dl, g_vr, g_dr), each (lt, nZ, d2)."""
+    -> (g_vl, g_dl, g_vr, g_dr), each (lt, nZ, d2).  matern12's step-norm
+    cotangents chain into g_dl and g_dr (``_norm_chain``)."""
     if symmetric:
         ct = _fold(ct)
-    G, P = _zz_partials(Vl, Dl, Vr, Dr, base, increments)
+    norms = _zz_norms(Dl, Dr, base, increments)
+    G, P = _zz_partials(Vl, Dl, Vr, Dr, base, increments, norms)
     mbar = [None] * G.shape[0]
     for m, slots in _level_slots(num_levels):
         excl = _excl_products([G[k] for k in slots])
         for k, ex in zip(slots, excl):
             mbar[k] = ct[m] if ex is None else ct[m] * ex
     Mbar = torch.stack(mbar)
-    W_A, W_01, W_10, W_xx = (None if p is None else Mbar * p for p in P)
+    W_A, W_01, W_10, W_xx, W_nx, W_ny = (None if p is None else Mbar * p
+                                         for p in P)
 
     def rows(w, B):  # sum over columns j: w[k, i, j] B[k, j, :]
         return torch.matmul(w, B)
@@ -328,10 +395,13 @@ def kzz_bwd_plain(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
     def cols(w, A):  # sum over rows i: w[k, i, j] A[k, i, :]
         return torch.matmul(w.transpose(1, 2), A)
 
-    return (_contract([(rows, W_A, Vr), (rows, W_01, Dr)], Vl),
-            _contract([(rows, W_10, Vr), (rows, W_xx, Dr)], Dl),
-            _contract([(cols, W_A, Vl), (cols, W_10, Dl)], Vr),
-            _contract([(cols, W_01, Vl), (cols, W_xx, Dl)], Dr))
+    g_dl = _contract([(rows, W_10, Vr), (rows, W_xx, Dr)], Dl)
+    g_dr = _contract([(cols, W_01, Vl), (cols, W_xx, Dl)], Dr)
+    if norms is not None:
+        g_dl = _norm_chain(g_dl, Dl, torch.sum(W_nx, dim=2), norms[0][..., 0])
+        g_dr = _norm_chain(g_dr, Dr, torch.sum(W_ny, dim=1), norms[1][:, 0])
+    return (_contract([(rows, W_A, Vr), (rows, W_01, Dr)], Vl), g_dl,
+            _contract([(cols, W_A, Vl), (cols, W_10, Dl)], Vr), g_dr)
 
 
 def _k2_plan(nz: int):
@@ -383,15 +453,16 @@ def kzz_bwd(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
                              symmetric=symmetric)
     _check_cuda("kzz_bwd", Vl, Dl, Vr, Dr, ct)
     Vl, Dl, Vr, Dr, ct = (t.contiguous() for t in (Vl, Dl, Vr, Dr, ct))
+    nl, nr = _step_norms(Dl, base), _step_norms(Dr, base)
     ranges, per = _k2_plan(nz)
     d2p = -(-d2 // _ZZ_CB) * _ZZ_CB  # slab rows padded to channel blocks
     # (ranges, [g_vl, g_dl, g_vr, g_dr], lt, nZ, d2p)
     out = torch.empty((ranges, 4, lt, nz, d2p), dtype=torch.float32,
                       device=Vl.device)
     _launch("gpsig_kzz_bwd", num_levels, Vl.data_ptr(), Dl.data_ptr(),
-            Vr.data_ptr(), Dr.data_ptr(), ct.data_ptr(), out.data_ptr(), lt,
-            nz, d2, num_levels, _BASE_IDS[base], int(increments),
-            int(symmetric), ranges, per, _stream(Vl))
+            Vr.data_ptr(), Dr.data_ptr(), _ptr(nl), _ptr(nr), ct.data_ptr(),
+            out.data_ptr(), lt, nz, d2, num_levels, _BASE_IDS[base],
+            int(increments), int(symmetric), ranges, per, _stream(Vl))
     kzz_bwd.launches += 1
     g = torch.sum(out, dim=0)
     return (g if d2p == d2 else g[..., :d2]).unbind(0)
@@ -405,31 +476,92 @@ kzz_bwd.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _zx_norms(Dl, Xd, base: str, T: int):
+    """matern12's step norms of the inducing tensors (lt, nZ) and of the
+    first T time steps (N, T), broadcast to the slot Grams' (lt, nZ, N,
+    T); None for the other bases."""
+    if base != "matern12":
+        return None
+    return (_step_norms(Dl, base)[:, :, None, None],
+            _step_norms(Xd[:, :T], base)[None, None])
+
+
+def _zx_gram(Vl, Dl, Xv, Xd, base: str, increments: bool, difference: bool,
+             norms, partials: bool):
+    """Slot Grams G (lt, nZ, N, T) of tensor rows against the first T
+    sequence rows, or with ``partials`` (G, dG/d(A0, dZA, dA0, ddA, nz,
+    nt)), None where zero: ``common.cuh::slot_gram_zx(_partials)``
+    (matern12: ``mat12_cross``, ``mat12_onesided``, ``mat12_plain``) in
+    torch ops (``_slot_gram_zx`` / ``_slot_gram_zx_bwd``,
+    ``inducing_pallas.py:554`` / ``:604``).  A0 = <v, x>, dZA = <dv, x>,
+    dA0 = <v, dx>, ddA = <dv, dx>; nz, nt the step norms of the inducing
+    tensors and the time steps (``_zx_norms``)."""
+    def dots(A, B):
+        return torch.einsum("kzc,ntc->kznt", A, B)
+
+    exp, expm1 = gram.exp_accurate, gram._expm1_stable
+    P = [None] * 6
+    if base == "linear":
+        P[int(increments) + 2 * int(difference)] = 1.0
+        G = dots(Dl if increments else Vl, Xd if difference else Xv)
+        return (G, tuple(P)) if partials else G
+    A0 = dots(Vl, Xv)
+    if base == "matern12":
+        # the closed forms' (A00, d01, d10, dxx) are (A0, dA0, dZA, ddA):
+        # the z step on the lhs (x) side, the time step on the rhs (y)
+        nz, nt = norms
+        if increments and difference:
+            args = (A0, dots(Vl, Xd), dots(Dl, Xv), dots(Dl, Xd), nz, nt)
+            if not partials:
+                return gram.mat12_cross_from_dots(*args)
+            G, (pa, p01, p10, pxx, pnx, pny) = gram.mat12_cross_partials(
+                *args)
+            return G, (pa, p10, p01, pxx, pnx, pny)
+        if increments or difference:
+            gap, n = (dots(Dl, Xv), nz) if increments else (dots(Vl, Xd), nt)
+            if not partials:
+                return gram.mat12_onesided_from_dots(A0, gap, n)
+            G, (pa, pg, pn) = gram.mat12_onesided_partials(A0, gap, n)
+            at = 1 if increments else 2
+            P[0], P[at], P[at + 3] = pa, pg, pn
+            return G, tuple(P)
+        if not partials:
+            return gram.mat12_plain_from_dots(A0)
+        G, (P[0],) = gram.mat12_plain_partials(A0)
+        return G, tuple(P)
+    eA0 = exp(A0)
+    if increments:
+        dZA = dots(Dl, Xv)
+        if difference:
+            dA0 = dots(Vl, Xd)
+            edZ = exp(dZA)
+            em1s, em1d = expm1(dA0 + dots(Dl, Xd)), expm1(dA0)
+            G = eA0 * (edZ * em1s - em1d)
+            P[:4] = (G, eA0 * edZ * em1s,
+                     eA0 * (edZ * (em1s + 1.0) - (em1d + 1.0)),
+                     eA0 * edZ * (em1s + 1.0))
+        else:
+            em1z = expm1(dZA)
+            G = eA0 * em1z
+            P[:2] = G, eA0 * (em1z + 1.0)
+    elif difference:
+        em1d = expm1(dots(Vl, Xd))
+        G = eA0 * em1d
+        P[0], P[2] = G, eA0 * (em1d + 1.0)
+    else:
+        G = eA0
+        P[0] = eA0
+    return (G, tuple(P)) if partials else G
+
+
 def kzx_fwd_plain(Vl, Dl, Xv, Xd, *, num_levels: int, base: str,
                   increments: bool, difference: bool):
     """Plain torch version of K3: tensor rows (lt, nZ, d2) against sequence
     rows (N, L, d2) -> ``(num_levels+1, nZ, N)``.  f32 uses
     ``gram.exp_accurate`` and the Taylor ``expm1``; f64 the native ones."""
     T = Xv.shape[1] - 1 if difference else Xv.shape[1]
-    Xv, Xd = Xv[:, :T], Xd[:, :T]
-
-    def dots(A, B):
-        return torch.einsum("kzc,ntc->kznt", A, B)
-
-    exp, expm1 = gram.exp_accurate, gram._expm1_stable
-    if base == "linear":
-        G = dots(Dl if increments else Vl, Xd if difference else Xv)
-    elif increments:
-        eA0, dZA = exp(dots(Vl, Xv)), dots(Dl, Xv)
-        if difference:
-            dA0 = dots(Vl, Xd)
-            G = eA0 * (exp(dZA) * expm1(dA0 + dots(Dl, Xd)) - expm1(dA0))
-        else:
-            G = eA0 * expm1(dZA)
-    elif difference:
-        G = exp(dots(Vl, Xv)) * expm1(dots(Vl, Xd))
-    else:
-        G = exp(dots(Vl, Xv))
+    G = _zx_gram(Vl, Dl, Xv[:, :T], Xd[:, :T], base, increments, difference,
+                 _zx_norms(Dl, Xd, base, T), partials=False)
     return signature_kern_tens_vs_seq_first_order(G, num_levels,
                                                   difference=False)
 
@@ -459,12 +591,13 @@ def kzx_fwd(Vl, Dl, Xv, Xd, *, num_levels: int, base: str, increments: bool,
                              difference=difference)
     _check_cuda("kzx_fwd", Vl, Dl, Xv, Xd)
     Vl, Dl, Xv, Xd = (t.contiguous() for t in (Vl, Dl, Xv, Xd))
+    nz_, nt = _step_norms(Dl, base), _step_norms(Xd, base)
     out = torch.empty((num_levels + 1, nz, n_ex), dtype=torch.float32,
                       device=Vl.device)
     _launch("gpsig_kzx_fwd", num_levels, Vl.data_ptr(), Dl.data_ptr(),
-            Xv.data_ptr(), Xd.data_ptr(), out.data_ptr(), lt, nz, n_ex, L,
-            d2, num_levels, _BASE_IDS[base], int(increments),
-            int(difference), _stream(Vl))
+            Xv.data_ptr(), Xd.data_ptr(), _ptr(nz_), _ptr(nt),
+            out.data_ptr(), lt, nz, n_ex, L, d2, num_levels, _BASE_IDS[base],
+            int(increments), int(difference), _stream(Vl))
     kzx_fwd.launches += 1
     return out
 
@@ -475,42 +608,6 @@ kzx_fwd.launches = 0
 # ---------------------------------------------------------------------------
 # K4: Kzx backward
 # ---------------------------------------------------------------------------
-
-
-def _zx_partials(Vl, Dl, Xv, Xd, base: str, increments: bool,
-                 difference: bool):
-    """Slot Grams G (lt, nZ, N, T) and their partials dG/d(A0, dZA, dA0,
-    ddA), None where zero: ``common.cuh::slot_gram_zx_partials`` in torch
-    ops (``_slot_gram_zx_bwd``, ``inducing_pallas.py:604``, before the slot
-    cotangent).  A0 = <v, x>, dZA = <dv, x>, dA0 = <v, dx>, ddA = <dv, dx>."""
-    def dots(A, B):
-        return torch.einsum("kzc,ntc->kznt", A, B)
-
-    exp, expm1 = gram.exp_accurate, gram._expm1_stable
-    if base == "linear":
-        P = [None] * 4
-        P[int(increments) + 2 * int(difference)] = 1.0
-        return dots(Dl if increments else Vl,
-                    Xd if difference else Xv), tuple(P)
-    eA0 = exp(dots(Vl, Xv))
-    if increments:
-        dZA = dots(Dl, Xv)
-        if difference:
-            dA0 = dots(Vl, Xd)
-            edZ = exp(dZA)
-            em1s, em1d = expm1(dA0 + dots(Dl, Xd)), expm1(dA0)
-            G = eA0 * (edZ * em1s - em1d)
-            return G, (G, eA0 * edZ * em1s,
-                       eA0 * (edZ * (em1s + 1.0) - (em1d + 1.0)),
-                       eA0 * edZ * (em1s + 1.0))
-        em1z = expm1(dZA)
-        G = eA0 * em1z
-        return G, (G, eA0 * (em1z + 1.0), None, None)
-    if difference:
-        em1d = expm1(dots(Vl, Xd))
-        G = eA0 * em1d
-        return G, (G, None, eA0 * (em1d + 1.0), None)
-    return eA0, (eA0, None, None, None)
 
 
 def _rev_cumsum_exclusive(x, dim: int):
@@ -527,7 +624,9 @@ def kzx_bwd_plain(Vl, Dl, Xv, Xd, ct, *, num_levels: int, base: str,
     L = Xv.shape[1]
     T = L - 1 if difference else L
     Xv_t, Xd_t = Xv[:, :T], Xd[:, :T]
-    G, P = _zx_partials(Vl, Dl, Xv_t, Xd_t, base, increments, difference)
+    norms = _zx_norms(Dl, Xd, base, T)
+    G, P = _zx_gram(Vl, Dl, Xv_t, Xd_t, base, increments, difference, norms,
+                    partials=True)
     gbar = [None] * G.shape[0]
     for m, slots in _level_slots(num_levels):
         chain = []
@@ -543,7 +642,8 @@ def kzx_bwd_plain(Vl, Dl, Xv, Xd, ct, *, num_levels: int, base: str,
                 gbar[k] = Rbar * cumsum_exclusive(chain[a - 1], dim=2)
                 Rbar = _rev_cumsum_exclusive(G[k] * Rbar, dim=2)
     Gbar = torch.stack(gbar)
-    W_A0, W_dZ, W_dA, W_dd = (None if p is None else Gbar * p for p in P)
+    W_A0, W_dZ, W_dA, W_dd, W_nz, W_nt = (None if p is None else Gbar * p
+                                          for p in P)
 
     def z_side(w, X):
         return torch.einsum("kznt,ntc->kzc", w, X)
@@ -554,10 +654,18 @@ def kzx_bwd_plain(Vl, Dl, Xv, Xd, ct, *, num_levels: int, base: str,
     def pad(g):  # steps past the sweep get no gradient
         return torch.cat([g, torch.zeros_like(Xv[:, T:])], dim=1)
 
+    g_dl = _contract([(z_side, W_dZ, Xv_t), (z_side, W_dd, Xd_t)], Dl)
+    g_xd = _contract([(x_side, W_dA, Vl), (x_side, W_dd, Dl)], Xd_t)
+    if W_nz is not None:
+        g_dl = _norm_chain(g_dl, Dl, torch.sum(W_nz, dim=(2, 3)),
+                           norms[0][:, :, 0, 0])
+    if W_nt is not None:
+        g_xd = _norm_chain(g_xd, Xd_t, torch.sum(W_nt, dim=(0, 1)),
+                           norms[1][0, 0])
     return (_contract([(z_side, W_A0, Xv_t), (z_side, W_dA, Xd_t)], Vl),
-            _contract([(z_side, W_dZ, Xv_t), (z_side, W_dd, Xd_t)], Dl),
+            g_dl,
             pad(_contract([(x_side, W_A0, Vl), (x_side, W_dZ, Dl)], Xv_t)),
-            pad(_contract([(x_side, W_dA, Vl), (x_side, W_dd, Dl)], Xd_t)))
+            pad(g_xd))
 
 
 def kzx_bwd(Vl, Dl, Xv, Xd, ct, *, num_levels: int, base: str,
@@ -597,8 +705,11 @@ def kzx_bwd(Vl, Dl, Xv, Xd, ct, *, num_levels: int, base: str,
     VlT = Vl.transpose(1, 2).contiguous()
     DlT = Dl.transpose(1, 2).contiguous()
     Xv, Xd, ct = Xv.contiguous(), Xd.contiguous(), ct.contiguous()
-    # csrc/kzx_bwd.cu::kzx_bwd_smem_floats for a chunk of t_chunk steps
-    step_bytes = 4 * (2 * (-(-d2 // 4) * 4) + 6 * lt * _K4_LANES)
+    nz_, nt = _step_norms(Dl, base), _step_norms(Xd, base)
+    # csrc/kzx_bwd.cu::kzx_bwd_smem_floats for a chunk of t_chunk steps: G,
+    # the scan exchange and a slot Gram's partials (six with matern12)
+    n_p = 6 if base == "matern12" else 4
+    step_bytes = 4 * (2 * (-(-d2 // 4) * 4) + (2 + n_p) * lt * _K4_LANES)
     t_chunk = max(1, min(_K4_MAX_CHUNK, _K4_SMEM // step_bytes))
     # the block's inducing rows, padded to _K4_ROW_CHANNELS, in shared memory
     stage = d2 <= _K4_ROW_CHANNELS and (
@@ -612,10 +723,10 @@ def kzx_bwd(Vl, Dl, Xv, Xd, ct, *, num_levels: int, base: str,
     ck = torch.empty((n_ex, n_zb, -(-T // t_chunk), lt, _K4_LANES),
                      dtype=torch.float32, device=Vl.device)
     _launch("gpsig_kzx_bwd", num_levels, VlT.data_ptr(), DlT.data_ptr(),
-            Xv.data_ptr(), Xd.data_ptr(), ct.data_ptr(), gz.data_ptr(),
-            gx.data_ptr(), ck.data_ptr(), lt, nz, n_ex, L, d2, num_levels,
-            _BASE_IDS[base], int(increments), int(difference), t_chunk,
-            int(stage), _stream(Vl))
+            Xv.data_ptr(), Xd.data_ptr(), _ptr(nz_), _ptr(nt), ct.data_ptr(),
+            gz.data_ptr(), gx.data_ptr(), ck.data_ptr(), lt, nz, n_ex, L, d2,
+            num_levels, _BASE_IDS[base], int(increments), int(difference),
+            t_chunk, int(stage), _stream(Vl))
     kzx_bwd.launches += 1
     gz = torch.sum(gz, dim=0).transpose(-1, -2)
     gx = torch.sum(gx, dim=0)

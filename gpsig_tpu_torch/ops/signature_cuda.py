@@ -34,8 +34,15 @@ to rounding (~3e-8 at f32); that mirror is the only difference.  The
 backward folds the cotangent onto the upper triangle (ct + ct^T off the
 diagonal).
 
-Not ported here: ``order > 1`` (ROADMAP Queue 1, item 6) and the matern12
-base (Queue 1, item 2); both raise ``NotImplementedError``.
+matern12 takes the step norms of both sides' difference rows
+(``inducing_cuda._step_norms``) as the floors of its closed form, and its
+backward masks the cotangent of an increment entry whose step on either
+side is zero, as ``_kernel_bwd`` does (``signature_pallas.py:991-1017``):
+there the forward is exactly 0, so the mask is exact for repeat padding
+and the lengthscales, and at a genuinely repeated observation of an
+inducing sequence it keeps the JAX package's gradient.  Not ported here:
+``order > 1`` (ROADMAP Queue 1, item 6), which raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -74,10 +81,6 @@ def _check_config(num_levels: int, base: str, order: int = 1):
         raise NotImplementedError(
             "order > 1 in the seq x seq kernels is not ported yet: ROADMAP "
             "Queue 1, item 6")
-    if base == "matern12":
-        raise NotImplementedError(
-            "matern12 in the seq x seq kernels is not ported yet: ROADMAP "
-            "Queue 1, item 2")
     if base not in ic.SUPPORTED_BASES:
         raise ValueError(f"base {base!r} has no seq x seq kernel; supported:"
                          f" {ic.SUPPORTED_BASES}")
@@ -154,6 +157,16 @@ def _levels_vjp(M, ct, num_levels: int):
     return Mbar + Rbar
 
 
+def _seq_norms(Dl, Dr, base: str, difference: bool):
+    """matern12's step norms of both sides, broadcast to the increment
+    Grams' (N1, N2, T1, T2) as (N1, 1, T1, 1) and (1, N2, 1, T2); (None,
+    None) for the other bases and without difference."""
+    if base != "matern12" or not difference:
+        return None, None
+    return (ic._step_norms(Dl, base)[:, None, :, None],
+            ic._step_norms(Dr, base)[None, :, None, :])
+
+
 def seq_fwd_plain(Vl, Dl, Vr, Dr, *, num_levels: int, base: str,
                   difference: bool, symmetric: bool = False):
     """Plain torch version of K5 on the augmented rows, lhs (N1, L1, d2)
@@ -171,10 +184,12 @@ def seq_fwd_plain(Vl, Dl, Vr, Dr, *, num_levels: int, base: str,
                           device=Vl.device)
         out[0] = 1.0
         return out
+    nl, nr = _seq_norms(Dl, Dr, base, difference)
     blocks = []
     for a0, a1 in _row_blocks(n1, n2, T1, T2):
-        M, _ = ic._zz_partials(Vl[a0:a1], Dl[a0:a1], Vr, Dr, base, difference,
-                               dots=_pair_dots)
+        norms = None if nl is None else (nl[a0:a1], nr)
+        M = ic._zz_gram(Vl[a0:a1], Dl[a0:a1], Vr, Dr, base, difference,
+                        norms, dots=_pair_dots)
         blocks.append(_levels(M, num_levels))
     out = torch.cat(blocks, dim=1)
     return ic._mirror(out) if symmetric else out
@@ -184,7 +199,9 @@ def seq_bwd_plain(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
                   difference: bool, symmetric: bool = False):
     """Plain torch version of K6: the VJP of ``seq_fwd_plain`` under the
     cotangent ct (num_levels+1, N1, N2) -> (g_vl, g_dl) (N1, L1, d2) and
-    (g_vr, g_dr) (N2, L2, d2)."""
+    (g_vr, g_dr) (N2, L2, d2).  matern12: Mbar is masked where either
+    step is zero (the module docstring), and the step-norm cotangents
+    chain into g_dl and g_dr."""
     _check_rows("seq_bwd_plain", Vl, Dl, Vr, Dr, symmetric)
     if symmetric:
         ct = ic._fold(ct)
@@ -196,6 +213,7 @@ def seq_bwd_plain(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
         return tuple(grads)
     g_vl, g_dl, g_vr, g_dr = grads
     Vr_t, Dr_t = Vr[:, :T2], Dr[:, :T2]
+    nl, nr = _seq_norms(Dl[:, :T1], Dr_t, base, difference)
 
     def rows(w, B):  # sum over (b, t): w[a, b, s, t] B[b, t, :]
         return torch.einsum("abst,btc->asc", w, B)
@@ -205,18 +223,27 @@ def seq_bwd_plain(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
 
     for a0, a1 in _row_blocks(n1, n2, T1, T2):
         Vl_a, Dl_a = Vl[a0:a1, :T1], Dl[a0:a1, :T1]
+        norms = None if nl is None else (nl[a0:a1], nr)
         M, P = ic._zz_partials(Vl_a, Dl_a, Vr_t, Dr_t, base, difference,
-                               dots=_pair_dots)
+                               norms, dots=_pair_dots)
         Mbar = _levels_vjp(M, ct[:, a0:a1], num_levels)
-        W_A, W_01, W_10, W_xx = (None if p is None else Mbar * p for p in P)
+        if nl is not None:  # the dead-step mask
+            Mbar = Mbar * ((norms[0] > 0) & (nr > 0)).to(Mbar.dtype)
+        W_A, W_01, W_10, W_xx, W_nx, W_ny = (None if p is None else Mbar * p
+                                             for p in P)
+        gd_l = ic._contract([(rows, W_10, Vr_t), (rows, W_xx, Dr_t)], Dl_a)
+        gd_r = ic._contract([(cols, W_01, Vl_a), (cols, W_xx, Dl_a)], Dr_t)
+        if nl is not None:
+            gd_l = ic._norm_chain(gd_l, Dl_a, torch.sum(W_nx, dim=(1, 3)),
+                                  norms[0][:, 0, :, 0])
+            gd_r = ic._norm_chain(gd_r, Dr_t, torch.sum(W_ny, dim=(0, 2)),
+                                  nr[0, :, 0])
         g_vl[a0:a1, :T1] += ic._contract([(rows, W_A, Vr_t),
                                           (rows, W_01, Dr_t)], Vl_a)
-        g_dl[a0:a1, :T1] += ic._contract([(rows, W_10, Vr_t),
-                                          (rows, W_xx, Dr_t)], Dl_a)
+        g_dl[a0:a1, :T1] += gd_l
         g_vr[:, :T2] += ic._contract([(cols, W_A, Vl_a),
                                       (cols, W_10, Dl_a)], Vr_t)
-        g_dr[:, :T2] += ic._contract([(cols, W_01, Vl_a),
-                                      (cols, W_xx, Dl_a)], Dr_t)
+        g_dr[:, :T2] += gd_r
     return g_vl, g_dl, g_vr, g_dr
 
 
@@ -281,6 +308,7 @@ def seq_fwd(Vl, Dl, Vr, Dr, *, num_levels: int, base: str, difference: bool,
     G, cpl, nc = _k5_plan(min(T1, T2), d2)
     outer, inner = ((Vr, Dr), (Vl, Dl)) if swap else ((Vl, Dl), (Vr, Dr))
     ov, od, iv, id_ = (t.contiguous() for t in (*outer, *inner))
+    no, ni = ic._step_norms(od, base), ic._step_norms(id_, base)
     (n_out, L_out, _), (n_in, L_in, _) = ov.shape, iv.shape
     # outer sequences a block takes: short ones share the inner rows
     T_out = _steps(L_out, difference)
@@ -296,7 +324,8 @@ def seq_fwd(Vl, Dl, Vr, Dr, *, num_levels: int, base: str, difference: bool,
     out = torch.empty((num_levels + 1, n1, n2), dtype=torch.float32,
                       device=Vl.device)
     ic._launch("gpsig_seq_fwd", num_levels, ov.data_ptr(), od.data_ptr(),
-               iv.data_ptr(), id_.data_ptr(), out.data_ptr(),
+               iv.data_ptr(), id_.data_ptr(), ic._ptr(no), ic._ptr(ni),
+               out.data_ptr(),
                0 if gcarry is None else gcarry.data_ptr(), n_out, L_out,
                n_in, L_in, d2, num_levels, ic._BASE_IDS[base],
                int(difference), int(symmetric), int(swap), G, cpl, nc, orng,
@@ -346,6 +375,7 @@ def seq_bwd(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
     (ov, od), (iv, id_) = (((Vr, Dr), (Vl, Dl)) if swap
                            else ((Vl, Dl), (Vr, Dr)))
     ov, od, iv, id_, ct = (t.contiguous() for t in (ov, od, iv, id_, ct))
+    no, ni = ic._step_norms(od, base), ic._step_norms(id_, base)
     (n_out, L_out, _), (n_in, L_in, _) = ov.shape, iv.shape
     T_out, T_in = _steps(L_out, difference), _steps(L_in, difference)
     G, cpl, nc = _k6_plan(T_in)
@@ -375,7 +405,8 @@ def seq_bwd(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
     gscratch = torch.empty((max(1, scratch * n_sets * ranges),),
                            dtype=torch.float32, device=dev)
     ic._launch("gpsig_seq_bwd", num_levels, ov.data_ptr(), od.data_ptr(),
-               iv.data_ptr(), id_.data_ptr(), ct.data_ptr(), g_out.data_ptr(),
+               iv.data_ptr(), id_.data_ptr(), ic._ptr(no), ic._ptr(ni),
+               ct.data_ptr(), g_out.data_ptr(),
                g_in.data_ptr(), gscratch.data_ptr(), n_out, L_out, n_in,
                L_in, d2, num_levels, ic._BASE_IDS[base], int(difference),
                int(symmetric), int(swap), G, cpl, nc, ranges, mode,
@@ -406,6 +437,25 @@ def expm1_probe(args):
     out = torch.empty((args.shape[0], 8), dtype=args.dtype,
                       device=args.device)
     ic._launch("gpsig_expm1_probe", 1, args.data_ptr(), out.data_ptr(),
+               args.shape[0], ic._stream(args))
+    return out
+
+
+def m12_probe(args):
+    """Test hook of ``csrc/common.cuh``'s matern12 algebra on a CUDA float32
+    tensor args (n, 6) = (a00, d01, d10, dxx, nx, ny) rows: (n, 9) =
+    (mat12_cross as K1, K3 and K5 evaluate it; its value and six partials
+    dM/d(a00, d01, d10, dxx, nx, ny) with expm1_acc, as K2 takes them; the
+    value with expm1f, as K4 and K6 take it).  Not a kernel of any path."""
+    ic._check_cuda("m12_probe", args)
+    if args.ndim != 2 or args.shape[1] != 6:
+        raise ValueError(f"m12_probe: args of shape {tuple(args.shape)}")
+    padded = torch.zeros((args.shape[0], 8), dtype=args.dtype,
+                         device=args.device)
+    padded[:, :6] = args
+    out = torch.empty((args.shape[0], 9), dtype=args.dtype,
+                      device=args.device)
+    ic._launch("gpsig_m12_probe", 1, padded.data_ptr(), out.data_ptr(),
                args.shape[0], ic._stream(args))
     return out
 

@@ -15,6 +15,9 @@ the backward kernels, whose gradients sum many more terms in another order.
 The seq x seq kernels K5/K6 are held against the f64 plain version, with
 the same bounds as ``chip_smoke.py``'s (1e-4 * max(scale, 1)): their level
 sums over 100s of steps carry f32 rounding of the plain version as well.
+The matern12 cases keep these bounds on distinct pairs and take JAX's
+matern12 bounds at the |.| kink of a symmetric Gram's diagonal pairs (the
+block before them says how).
 """
 
 import numpy as np
@@ -612,3 +615,192 @@ def test_backward_kernels_at_wide_rows(cuda):
                      generator=torch.Generator(cuda).manual_seed(12))
     _grads_close(sc.seq_bwd(*rows, ct, **kws),
                  sc.seq_bwd_plain(*rows, ct, **kws))
+
+
+# ---------------------------------------------------------------------------
+# matern12: K1-K6 under the exp(-r) base.  Phase 2's bounds where the pairs
+# are distinct; a symmetric Gram's diagonal pairs meet their own points at
+# r = 0, the |.| kink of exp(-r), where float32 is sqrt(eps)-limited against
+# any reference: there the forward is held to JAX's own matern12 bound, 2e-3
+# relative to max(scale, 1) (tests/test_inducing_pallas.py:52-53), against
+# the f32 plain version (f64 is no reference there: its self-pair
+# derivative is 1/r00 of f64 rounding).  A self-pair's a00 partial is
+# M / r00 with r00 the square root of the rounding of -2 a00, or 0 where
+# that rounding is negative: two f32 evaluations of it differ by O(1) (it
+# read 79,023 against a scale of 91,081 on 9-step sequences), so the
+# gradients of a full cotangent are held finite and bit-identical, and the
+# gradients of the distinct pairs (a zero-diagonal cotangent) at phase 2's
+# bounds.
+# ---------------------------------------------------------------------------
+
+KINK_FWD = 2e-3
+
+
+def _close(out, ref, bound):
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        scale = max(float(r.abs().max()), 1.0)
+        assert float((o.double() - r.double()).abs().max()) <= bound * scale
+
+
+@pytest.mark.parametrize("sym", [False, True])
+@pytest.mark.parametrize("inc", [True, False])
+def test_matern12_kzz_kernels_match_plain(cuda, inc, sym):
+    zz, _ = _inputs(cuda, "matern12", inc)
+    kw = dict(num_levels=M_LVL, base="matern12", increments=inc,
+              symmetric=sym)
+    off = ~torch.eye(37, dtype=torch.bool, device=cuda)
+    ct = torch.randn((M_LVL + 1, 37, 37), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(11))
+    before = (ic.kzz_fwd.launches, ic.kzz_bwd.launches)
+    out = ic.kzz_fwd(*zz, **kw)
+    grads = ic.kzz_bwd(*zz, ct * off, **kw)
+    torch.cuda.synchronize()
+    assert (ic.kzz_fwd.launches, ic.kzz_bwd.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    ref = ic.kzz_fwd_plain(*zz, **kw)
+    _close(out[:, off], ref[:, off], 1e-5)
+    _close(out, ref, KINK_FWD)
+    if sym:
+        assert torch.equal(out, out.transpose(1, 2))
+    _close(grads, ic.kzz_bwd_plain(*zz, ct * off, **kw), 1e-4)
+    full = ic.kzz_bwd(*zz, ct, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(full,
+                                                 ic.kzz_bwd(*zz, ct, **kw)))
+    assert all(bool(torch.isfinite(g).all()) for g in full)
+
+
+@pytest.mark.parametrize("inc,diff", [(True, True), (True, False),
+                                      (False, True), (False, False)])
+def test_matern12_kzx_kernels_match_plain(cuda, inc, diff):
+    _, zx = _inputs(cuda, "matern12", inc)
+    kw = dict(num_levels=M_LVL, base="matern12", increments=inc,
+              difference=diff)
+    ct = torch.randn((M_LVL + 1, 37, 3), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(12))
+    out = ic.kzx_fwd(*zx, **kw)
+    grads = ic.kzx_bwd(*zx, ct, **kw)
+    torch.cuda.synchronize()
+    assert _bound(out, ic.kzx_fwd_plain(*zx, **kw))
+    _grads_close(grads, ic.kzx_bwd_plain(*zx, ct, **kw))
+    assert all(torch.equal(a, b) for a, b in zip(grads,
+                                                 ic.kzx_bwd(*zx, ct, **kw)))
+
+
+@pytest.mark.parametrize("sym,L1,L2", [(False, 11, 18), (False, 18, 11),
+                                       (True, 9, 9), (False, 140, 131),
+                                       (True, 130, 130)])
+def test_matern12_seq_kernels_match_plain(cuda, sym, L1, L2):
+    """K5/K6 against the f64 plain version, also past one inner chunk (K5:
+    64 steps, K6: 128)."""
+    rows = _seq_rows(cuda, "matern12", L1=L1, L2=L2, sym=sym,
+                     n2=7 if sym else 5)
+    kw = dict(num_levels=M_LVL, base="matern12", difference=True,
+              symmetric=sym)
+    n2 = 7 if sym else 5
+    ct = torch.randn((M_LVL + 1, 7, n2), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(13))
+    out = sc.seq_fwd(*rows, **kw)
+    rows64 = [t.double() for t in rows]
+    ref = sc.seq_fwd_plain(*rows64, **kw)
+    if sym:  # the kink against the f32 plain version: f64 is none there
+        off = ~torch.eye(7, dtype=torch.bool, device=cuda)
+        assert torch.equal(out, out.transpose(1, 2))
+        _close(out[:, off], ref[:, off], 1e-4)
+        _close(out, sc.seq_fwd_plain(*rows, **kw), KINK_FWD)
+        assert all(bool(torch.isfinite(g).all())
+                   for g in sc.seq_bwd(*rows, ct, **kw))
+        ct = ct * off
+    else:
+        _close(out, ref, 1e-4)
+    grads = sc.seq_bwd(*rows, ct, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads,
+                                                 sc.seq_bwd(*rows, ct, **kw)))
+    _grads_close([g.double() for g in grads],
+                 sc.seq_bwd_plain(*rows64, ct.double(), **kw))
+
+
+def test_matern12_device_algebra_against_float64(cuda):
+    """common.cuh's matern12 closed form and its six partials (the probe)
+    against ``gram.mat12_cross_partials`` at float64 on the same float32
+    corner dots, each column within 1e-4 of max(its largest, 1)."""
+    from gpsig_tpu_torch.ops import gram
+
+    rng = np.random.RandomState(14)
+    n, d = 1 << 14, 5
+    x, y = rng.randn(n, d) * 0.5, rng.randn(n, d) * 0.5
+    size = 10.0 ** rng.uniform(-3, 0, (2, n, 1))
+    dx, dy = rng.randn(n, d) * size[0], rng.randn(n, d) * size[1]
+    a00 = np.sum(x * y, 1) - 0.5 * np.sum(x * x, 1) - 0.5 * np.sum(y * y, 1)
+    d01 = np.sum(x * dy, 1) - 0.5 * np.sum((2 * y + dy) * dy, 1)
+    d10 = np.sum(dx * y, 1) - 0.5 * np.sum((2 * x + dx) * dx, 1)
+    args = np.stack([a00, d01, d10, np.sum(dx * dy, 1),
+                     np.linalg.norm(dx, axis=1), np.linalg.norm(dy, axis=1)],
+                    1).astype(np.float32)
+    out = sc.m12_probe(torch.as_tensor(args, device=cuda)).double().cpu()
+    M, P = gram.mat12_cross_partials(*torch.as_tensor(args).double().T)
+    for k, want in enumerate([M, M, *P, M]):
+        assert float((out[:, k] - want).abs().max()) <= 1e-4 * max(
+            float(want.abs().max()), 1.0)
+
+
+def test_matern12_svgp_serves_and_trains_on_the_card(cuda):
+    """A small SignatureMatern12 SVGP with inducing tensors and one with
+    inducing sequences: predict_y on the card within 1e-3 of the same model
+    at float64 on the CPU (the plain versions), K1-K4 (K5/K6) launched; then
+    ten NAdam steps, every loss finite and the last below the first."""
+    import gpsig_tpu_torch as T
+    from gpsig_tpu_torch import convert, training
+
+    rng = np.random.RandomState(15)
+    d, m, nz, c, n, L = 3, 2, 24, 3, 40, 12
+    X = rng.randn(n, L, d).cumsum(axis=1) * 0.3
+    y = (np.arange(n) % c).astype(np.float64)[:, None]
+    ls = T.utils.suggest_initial_lengthscales(X)
+    for kind in ("tensors", "sequences"):
+        if kind == "tensors":
+            Z = T.utils.suggest_initial_inducing_tensors(
+                X, m, nz, increments=True, seed=0)
+        else:
+            Z = T.utils.suggest_initial_inducing_sequences(X, nz, m + 1,
+                                                           seed=0)
+
+        def build(dtype, device):
+            ind = (T.InducingTensors(Z, m, increments=True, dtype=dtype,
+                                     device=device) if kind == "tensors"
+                   else T.InducingSequences(Z, m, dtype=dtype,
+                                            device=device))
+            return T.SVGP(T.kernels.SignatureMatern12(
+                d, m, lengthscales=ls, dtype=dtype, device=device), ind,
+                T.likelihoods.MultiClass(c), num_latent=c, num_data=n,
+                device=device)
+
+        model, ref = build(torch.float32, "cuda"), build(torch.float64,
+                                                         "cpu")
+        tree = convert.to_numpy_tree(model)
+        tree["q_mu"] = rng.randn(nz, c) * 0.5
+        for mod in (model, ref):
+            convert.load_jax_params(mod, tree)
+        names = (("kzz_fwd", "kzx_fwd") if kind == "tensors"
+                 else ("seq_fwd",))
+        before = {k: getattr(ic if k.startswith("kz") else sc, k).launches
+                  for k in names}
+        with torch.no_grad():
+            mean, _ = model.predict_y(torch.as_tensor(X[:8], device=cuda,
+                                                      dtype=torch.float32))
+            want, _ = ref.predict_y(torch.as_tensor(X[:8]))
+        for k in names:
+            assert getattr(ic if k.startswith("kz") else sc,
+                           k).launches > before[k]
+        assert float((mean.double().cpu() - want).abs().max()) <= 1e-3
+        opt = training.NAdam(list(model.parameters()), lr=1e-2)
+        Xt = torch.as_tensor(X, device=cuda, dtype=torch.float32)
+        yt = torch.as_tensor(y, device=cuda, dtype=torch.float32)
+        losses = []
+        for _ in range(10):
+            model.zero_grad(set_to_none=True)
+            loss = model.loss(Xt, yt)
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+        assert np.all(np.isfinite(losses)) and losses[-1] < losses[0]

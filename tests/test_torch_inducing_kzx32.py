@@ -30,7 +30,7 @@ def test_cpu_runs_count_no_launch_and_bad_inputs_raise():
     ic.fused_tens_vs_seq_levels(Z, X, num_levels=M_LVL)
     assert (ic.kzz_fwd.launches, ic.kzx_fwd.launches) == before
     with pytest.raises(ValueError, match="no inducing kernel"):
-        ic.fused_tensor_levels(Z, num_levels=M_LVL, base="matern12")
+        ic.fused_tensor_levels(Z, num_levels=M_LVL, base="cosine")
     with pytest.raises(ValueError, match="levels"):
         ic.fused_tensor_levels(Z, num_levels=2)
     with pytest.raises(ValueError, match="CUDA"):

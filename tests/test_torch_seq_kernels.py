@@ -116,8 +116,8 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="symmetric"):
         sc.seq_fwd(V, V, V[:2], V[:2], num_levels=M_LVL, base="rbf",
                    difference=True, symmetric=True)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        sc.seq_fwd(V, V, V, V, num_levels=M_LVL, base="matern12",
+    with pytest.raises(ValueError, match="no seq x seq kernel"):
+        sc.seq_fwd(V, V, V, V, num_levels=M_LVL, base="cosine",
                    difference=True)
     with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
         sc.fused_first_order_levels(torch.zeros(2, 4, 2), num_levels=M_LVL,
