@@ -11,9 +11,11 @@ and prints no result line):
 1. device: require CUDA, print versions and the card's name and power
    limit, build the hand-written kernels from ``gpsig_tpu_torch/csrc`` --
    the main library (1-8 levels) and, beside it, the ones for 9, 10 and 17
-   levels -- and print each's build time and ptxas's registers and stack
-   frame for K1, K2, K3 and K5 at 4 levels, every kernel at 9 and 17 and
-   K3 at 10 (the whole report goes to the details file);
+   levels and the K5/K6 ones for order 2 and order 4 at 4 levels and
+   order 3 at 9 -- and print each's build time and ptxas's registers and
+   stack frame for K1, K2, K3 and K5 at 4 levels, every kernel at 9 and 17,
+   K3 at 10 and every order instance (the whole report goes to the details
+   file);
 2. kernels: K1 (Kzz) and K3 (Kzx) on the card at the benchmark shape
    (lt=10, nZ=500, d=14, N=32 and 50, L=93) and at ragged shapes, each held
    against its plain PyTorch version at f32 (<= 1e-5 * max(scale, 1)) and
@@ -112,6 +114,24 @@ and prints no result line):
    two f32 evaluations at r = 0); (9f, after phase 4) K1-K6
    under matern12 timed as phase 4a, and both models' request latency and
    training steps/s;
+10. order > 1 (``SignatureRBF(14, 4, order=k)``, the reference's
+   discretization; its (k x k) grid of partial tensors in K5/K6): (10a) K5
+   and K6 at orders 2 and 4 (4 levels) on the sequences model's Kzz, Kzx
+   and full Kxx, 50 at 315 steps (symmetric), 7 x 5 at 300 vs 1,918 in
+   both argument orders, ragged 7 x 5 at 11 vs 18 (difference on and off,
+   rbf and linear) and matern12's three Grams, and at order 3 (9 levels)
+   on the short cases, against their plain versions under phase 2's bounds
+   (matern12's diagonal pairs as phase 9a holds them); K6 twice
+   bit-identical, symmetric outputs exactly symmetric; (10b) the order-2
+   inducing-sequences model served, every leaf's gradient held, 30 steps
+   with K5 and K6 twice a step, and ``predict_f(full_cov=True)`` (K5 three
+   times: Kzz, Kzx, Kxx); (10c) the order-2 inducing-tensors model the same
+   way under ``fused='auto'`` with K1 and K2 once a step and K3/K4 never
+   (Kzx has no kernel past order 1, in JAX as here), and a ``fused='on'``
+   twin raising on its Kzx; (10d) the order-4 (full grid) sequences model
+   as 10b; (10e, after phase 9f) K5/K6 at orders 1, 2 and 4 at the Kzz,
+   Kzx and full Kxx shapes against their plain versions, and the three
+   models' request latency and training steps/s;
 4. times: the six kernels against their plain versions with CUDA events,
    interleaved plain / kernel / kernel / plain (K1 and K2 in both modes
    with both bounds, each unordered pair counted once and every ordered
@@ -123,8 +143,9 @@ and prints no result line):
    (4e) K1-K6 at the lagged width at phase 2h's shapes, and the lagged
    tensors model's training steps/s and profile.
 
-The line before the last is a JSON object with one entry per kernel, and
-one per kernel's matern12 instance; the last line is ``{"ok": true,
+The line before the last is a JSON object with one entry per kernel, one
+per kernel's matern12 instance and one for K5 and K6 at order 2 and at
+order 4; the last line is ``{"ok": true,
 "device": {...}}``.  Details go to
 ``build/chip_smoke.json``.  The script imports nothing of JAX.
 
@@ -177,6 +198,10 @@ EXTRA_LEVELS = 9  # past the main library's 8
 WIDE_LEVELS = 10  # K3 chains its range states four warps at a time
 MANY_LEVELS = 17  # K3 past its chained states (its serial path)
 LEVEL_LIBS = (EXTRA_LEVELS, WIDE_LEVELS, MANY_LEVELS)
+# phase 10: K5/K6 at order > 1, each (levels, order) from a library of its
+# own -- order 2 and the full grid (order 4) at the benchmark's 4 levels,
+# order 3 on 9 levels
+ORDER_LIBS = ((LEVELS, 2), (LEVELS, LEVELS), (EXTRA_LEVELS, 3))
 WIDE_K2_D = 40  # d2 = 42 at 17 levels: past what a K2 holding a level's
 # rows in shared memory could take
 PEMS_D, PEMS_L = 963, 144  # PEMS: 963 features, 144 observations
@@ -276,20 +301,23 @@ def print_ptxas(rows, keep) -> None:
                   "bytes spill stores / loads")
 
 
-def build_libraries(build_mod, levels=LEVEL_LIBS):
-    """Phase 1: the main library and those for ``levels``, built at once
-    (each runs one nvcc per source); returns {levels: (library, seconds)},
-    the main library under 1."""
+def build_libraries(build_mod, levels=LEVEL_LIBS, orders=ORDER_LIBS):
+    """Phase 1: the main library, those for ``levels`` and the K5/K6 ones
+    for each (levels, order) of ``orders``, built at once (each runs one
+    nvcc per source); returns {key: (library, seconds)}, the main library
+    under 1, the others under their level count or (levels, order)."""
     out, errors = {}, []
 
     def build(m):
         t0 = time.perf_counter()
         try:
-            out[m] = (build_mod.load(m), time.perf_counter() - t0)
+            out[m] = (build_mod.load(*(m if isinstance(m, tuple) else (m,))),
+                      time.perf_counter() - t0)
         except Exception as e:  # re-raised below, in the main thread
             errors.append(e)
 
-    workers = [threading.Thread(target=build, args=(m,)) for m in levels]
+    workers = [threading.Thread(target=build, args=(m,))
+               for m in (*levels, *orders)]
     for w in workers:
         w.start()
     build(1)
@@ -323,17 +351,18 @@ def synthetic_data():
 
 
 def synthetic_setup(ut, T, X, y, kind: str, num_lags=None, classes=C,
-                    base="rbf"):
+                    base="rbf", order=1, fused="on"):
     """Benchmark-width SVGP with parameters from a numpy seed: the ported
     heuristics on the synthetic data -- 500 incremental inducing tensors
     (``kind='tensors'``) or 500 inducing sequences of length M+1
     (``'sequences'``, the recipe's ``use_tensors=False``) -- with q_mu /
     q_sqrt perturbed so predictions differ across classes and examples;
     ``num_lags`` lagged copies of the data, the recipe's likelihood for
-    ``classes`` (Bernoulli, one latent, for 2) and the signature kernel's
-    ``base`` (SignatureRBF's, or SignatureMatern12's).  Returns the f32
-    model on the card, its f64 twin on the CPU (the plain versions) and
-    ``build(dtype, fused, device)`` loaded with the same parameters."""
+    ``classes`` (Bernoulli, one latent, for 2), the signature kernel's
+    ``base`` (SignatureRBF's, or SignatureMatern12's) and ``order``.
+    Returns the f32 model on the card (``fused``), its f64 twin on the CPU
+    (the plain versions) and ``build(dtype, fused, device)`` loaded with
+    the same parameters."""
     rng = np.random.RandomState(SEED + (1 if kind == "tensors" else 2))
     latent = 1 if classes == 2 else classes
     if kind == "tensors":
@@ -347,7 +376,7 @@ def synthetic_setup(ut, T, X, y, kind: str, num_lags=None, classes=C,
     tree = None
 
     def build(dtype, fused, device):
-        kern = T.kernels.SignatureKernel(D, LEVELS, base=base,
+        kern = T.kernels.SignatureKernel(D, LEVELS, base=base, order=order,
                                          lengthscales=ls, num_lags=num_lags,
                                          fused=fused, dtype=dtype,
                                          device=device)
@@ -364,7 +393,7 @@ def synthetic_setup(ut, T, X, y, kind: str, num_lags=None, classes=C,
             T.convert.load_jax_params(model, tree)
         return model
 
-    model = build(torch.float32, "on", "cuda")
+    model = build(torch.float32, fused, "cuda")
     tree = T.convert.to_numpy_tree(model)
     tree["q_mu"] = rng.randn(N_IND, latent) * 0.5
     tree["q_sqrt"] = (np.tril(rng.randn(latent, N_IND, N_IND)) * 0.02
@@ -568,9 +597,10 @@ SEQ_CASES = (  # (N1, L1, N2, L2, symmetric, base, difference)
 )
 
 
-def seq_inputs(ic, Zs, X, ls, case, dtype):
+def seq_inputs(ic, Zs, X, ls, case, dtype, levels=LEVELS):
     """Augmented rows for K5/K6 (inducing sequences Zs against data X, both
-    scaled) and a cotangent from the seed, on the card."""
+    scaled) and a cotangent of ``levels`` levels from the seed, on the
+    card."""
     n1, l1, n2, l2, sym, base, _ = case
     scale = torch.as_tensor(ls, dtype=dtype, device="cuda")
 
@@ -590,7 +620,7 @@ def seq_inputs(ic, Zs, X, ls, case, dtype):
     B = Zs[:n2, :l2] if l2 == LEN_IND else data(n2, l2, False)
     B = A if sym else torch.as_tensor(B, dtype=dtype, device="cuda") / scale
     ct = torch.as_tensor(np.random.RandomState(SEED + 6).randn(
-        LEVELS + 1, n1, n2), dtype=dtype, device="cuda")
+        levels + 1, n1, n2), dtype=dtype, device="cuda")
     return (*ic._prep_seq(A, base, lhs=True), *ic._prep_seq(B, base)), ct
 
 
@@ -1099,24 +1129,30 @@ def bound_ms(name: str, nz: int, n: int, l: int, symmetric: bool = False,
                                        else "bytes")
 
 
-def seq_bound_ms(name: str, case, d2: int = D2) -> tuple[float, str]:
+def seq_bound_ms(name: str, case, d2: int = D2, order: int = 1,
+                 levels: int = LEVELS) -> tuple[float, str]:
     """``bound_ms`` for K5/K6 on a SEQ_CASES entry: per increment entry of
     the pairs this run computes (each unordered pair once when symmetric),
-    4 dots of d2 plus 3 FMAs a level past the first (the product, the
-    column sum, the prefix) and the level sum forward; backward the dots,
-    four d2-wide weight contractions on each side and the levels forward
-    and in reverse.  Bytes: the four row arrays (and the cotangent) read,
-    the level stack (the four gradients) written."""
+    4 dots of d2 plus, a level past the first, 2 FMAs a tile of its grid
+    (the product, the level sum) and one a column carry or scan (d of
+    each, d = min(level, order)): 3 a level at order 1 (the product, the
+    column sum, the prefix), 2 d^2 + d at a higher order, whose extra
+    tiles this counts; and the level sum.  Backward the dots, four d2-wide
+    weight contractions on each side and the levels forward and in
+    reverse.  Bytes: the four row arrays (and the cotangent) read, the
+    level stack (the four gradients) written."""
     n1, l1, n2, l2, sym, _, diff = case
     pairs = n1 * (n1 + 1) // 2 if sym else n1 * n2
     entries = pairs * (l1 - diff) * (l2 - diff)
     rows = 2 * (n1 * l1 + n2 * l2) * d2
+    grid = sum(2 * min(i, order) ** 2 + min(i, order)
+               for i in range(2, levels + 1))
     if name == "seq_fwd":
-        fma = entries * (4 * d2 + 3 * (LEVELS - 1) + 1)
-        nbytes = 4 * (rows + (LEVELS + 1) * n1 * n2)
+        fma = entries * (4 * d2 + grid + 1)
+        nbytes = 4 * (rows + (levels + 1) * n1 * n2)
     else:
-        fma = entries * (12 * d2 + 6 * (LEVELS - 1) + 1)
-        nbytes = 4 * (2 * rows + (LEVELS + 1) * n1 * n2)
+        fma = entries * (12 * d2 + 2 * grid + 1)
+        nbytes = 4 * (2 * rows + (levels + 1) * n1 * n2)
     t_ops, t_bytes = 2 * fma / PEAK_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -1149,9 +1185,10 @@ def time_seq_kernels(sc, ic, Zs, X, ls):
     return rows
 
 
-def full_cov_check(T, model, X, bound=1e-5):
+def full_cov_check(T, model, X, bound=1e-5, k5=1):
     """Phase 3b: the tensor model's ``predict_f(full_cov=True)`` at N=50,
-    L=93 launches K5 once; the covariance's diagonal is ``predict_f``'s
+    L=93 launches K5 once (``k5`` times: an inducing-sequences model's
+    Kzz, Kzx and full Kxx); the covariance's diagonal is ``predict_f``'s
     variance within ``bound`` relative (its mean ``predict_f``'s within
     ``bound``), and its jittered Cholesky succeeds.  The full covariance
     normalizes Kzx by the diagonal of the full Kxx (K5's self-pairs),
@@ -1168,7 +1205,8 @@ def full_cov_check(T, model, X, bound=1e-5):
     with torch.no_grad():
         mean_d, var = model.predict_f(Xq)
     print(f"  launches during predict_f(full_cov=True): {launches}")
-    check(launches["seq_fwd"] == 1, "full_cov did not launch K5 once")
+    check(launches["seq_fwd"] == k5,
+          f"full_cov launched K5 {launches['seq_fwd']} times, not {k5}")
     check(cov.shape == (C, BATCH, BATCH), f"covariance shape {cov.shape}")
     check(bool(torch.isfinite(cov).all()), "non-finite covariance")
     rel = float(((torch.diagonal(cov, dim1=1, dim2=2).T - var).abs()
@@ -1921,6 +1959,154 @@ def time_m12_kernels(ic, sc, ut, X, Zs, ls):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 10: order > 1 (SignatureRBF(d, M, order=k)), the (k x k) grid in K5/K6
+# ---------------------------------------------------------------------------
+
+# (N1, L1, N2, L2, symmetric, base, difference) of phase 10a, for each
+# (levels, order): the sequences model's three Grams, past one inner chunk
+# (50 at UWave's 315, symmetric; 7 x 5 at 300 vs WalkvsRun's 1,918 in both
+# argument orders), ragged with difference on and off, linear and matern12
+ORDER_CASES = (SEQ_KZZ, SEQ_KZX, SEQ_KXX,
+               (BATCH, UWAVE, BATCH, UWAVE, True, "rbf", True),
+               (7, 300, 5, WALK, False, "rbf", True),
+               (5, WALK, 7, 300, False, "rbf", True),
+               (7, 11, 5, 18, False, "rbf", True),
+               (7, 11, 5, 18, False, "rbf", False),
+               (7, 11, 5, 18, False, "linear", True),
+               *M12_SEQ.values())
+# order 3 runs on the 9-level library: the short cases
+ORDER3_CASES = (SEQ_KZZ, SEQ_KZX, (7, 11, 5, 18, False, "rbf", True),
+                (7, 11, 5, 18, False, "rbf", False),
+                (7, 11, 5, 18, False, "linear", True))
+
+
+def order_kernel_checks(sc, ic, Zs, X, ls):
+    """Phase 10a: K5 and K6 at orders 2 and 4 (4 levels) on ORDER_CASES
+    and at order 3 (9 levels) on ORDER3_CASES, against their plain versions
+    at f32 and f64 under phase 2's bounds, each level and gradient at its
+    own scale; K6 launched twice bit-identical, symmetric outputs exactly
+    symmetric.  matern12's symmetric Grams meet the |.| kink at their
+    diagonal pairs and are held as phase 9a holds them (off the diagonal
+    at phase 2's bounds, all of it at JAX's matern12 bounds against the
+    f32 plain version; the gradients of a zero-diagonal cotangent at phase
+    2's)."""
+    f32, f64 = torch.float32, torch.float64
+    rows = []
+    for levels, order in ORDER_LIBS:
+        for case in ORDER_CASES if order != 3 else ORDER3_CASES:
+            n1, l1, n2, l2, sym, base, diff = case
+            r = {dt: seq_inputs(ic, Zs, X, ls, case, dt, levels)
+                 for dt in (f32, f64)}
+            kw = dict(num_levels=levels, base=base, difference=diff,
+                      symmetric=sym, order=order)
+            meta = dict(N1=n1, L1=l1, N2=n2, L2=l2, symmetric=sym, base=base,
+                        difference=diff, levels=levels, order=order)
+            out = sc.seq_fwd(*r[f32][0], **kw)
+            p32 = sc.seq_fwd_plain(*r[f32][0], **kw)
+            p64 = sc.seq_fwd_plain(*r[f64][0], **kw)
+            torch.cuda.synchronize()
+            if sym:
+                check(torch.equal(out, out.transpose(1, 2)),
+                      f"seq_fwd order {order} {case}: not exactly symmetric")
+            ct = r[f64][1]
+            m12 = base == M12
+            if sym and m12:
+                off = ~torch.eye(n1, dtype=torch.bool, device="cuda")
+                rows.append(check_against_plain(
+                    "seq_fwd", out[:, off], p32[:, off], p64[:, off],
+                    dict(meta, part="off the diagonal"), f32_floor=True))
+                rows.append(check_against_plain(
+                    "seq_fwd", out, p32, p64, dict(meta, part="all"),
+                    kink=KINK_FWD))
+                ct = ct * off
+            else:
+                rows.append(check_against_plain("seq_fwd", out, p32, p64,
+                                                meta, f32_floor=m12))
+            grads = sc.seq_bwd(*r[f32][0], ct.float(), **kw)
+            again = sc.seq_bwd(*r[f32][0], ct.float(), **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                  f"seq_bwd order {order} {case}: two launches differ")
+            rows.append(check_against_plain(
+                "seq_bwd", grads,
+                sc.seq_bwd_plain(*r[f32][0], ct.float(), **kw),
+                sc.seq_bwd_plain(*r[f64][0], ct, **kw), meta,
+                f32_floor=m12))
+    return rows
+
+
+def drive_order_model(T, ut, X, y, kind, order):
+    """Phases 10b-10d: the benchmark-width SignatureRBF(14, 4, order) SVGP
+    with 500 inducing sequences of length 5 or 500 incremental inducing
+    tensors.  Served through ``Predictor`` (means within 1e-3 of the f64
+    CPU path, the same argmax where decided), every leaf's gradient held to
+    1e-3, 30 NAdam steps under the phase-2 mask, and
+    ``predict_f(full_cov=True)``.  Sequences: K5 and K6 twice a step (Kzz,
+    Kzx), and the full covariance launches K5 three times (Kzz, Kzx, Kxx).
+    Tensors: Kzx has no kernel past order 1, so the model runs under
+    'auto': K1 and K2 once a step, K3 and K4 never, K5 once for the full
+    covariance's Kxx; a ``fused='on'`` twin raises on its Kzx."""
+    tensors = kind == "tensors"
+    model, ref, build = synthetic_setup(
+        ut, T, X, y, kind, order=order, fused="auto" if tensors else "on")
+    check(model.kern.order == order, f"kernel order {model.kern.order}")
+    expect = ("kzz_fwd",) if tensors else ("seq_fwd",)
+    pred, serve_launches, requests = drive_serving(T, model, ref, X, expect)
+    if tensors:
+        check(serve_launches["kzx_fwd"] == 0, "K3 launched at order "
+              f"{order}: {serve_launches}")
+        twin = build(torch.float32, "on", "cuda")
+        Xq = torch.as_tensor(X[:2], device="cuda")
+        try:
+            twin.predict_y(Xq)
+        except ValueError as e:
+            check("order=1 only" in str(e), f"fused='on' raised {e}")
+            print(f"  fused='on' on the order-{order} Kzx raises: {e}")
+        else:
+            check(False, f"fused='on' served an order-{order} Kzx")
+        del twin
+    grads = gradient_check(T, model, ref, build, X, y)
+    per_step = ({"kzz_fwd": 1, "kzz_bwd": 1} if tensors
+                else {"seq_fwd": 2, "seq_bwd": 2})
+    launches, train = drive_training(T, model, X, y, per_step)
+    print(f"  predict_f(full_cov=True), order {order}:")
+    full_cov = full_cov_check(T, model, X, k5=1 if tensors else 3)
+    return model, pred, dict(kind=kind, order=order,
+                             serving_launches=serve_launches,
+                             requests=requests, gradient_check=grads,
+                             training_launches=launches, training=train,
+                             full_cov=full_cov)
+
+
+def time_order_kernels(sc, ic, Zs, X, ls):
+    """Phase 10e: K5 and K6 at orders 1, 2 and 4 (4 levels) at the
+    sequences model's Kzz, Kzx and full Kxx, each against its plain
+    version, interleaved plain / kernel / kernel / plain, with the bound
+    that counts the order's grid (``seq_bound_ms``)."""
+    rows = []
+    for key, case in (("Kzz", SEQ_KZZ), ("Kzx", SEQ_KZX), ("Kxx", SEQ_KXX)):
+        r, ct = seq_inputs(ic, Zs, X, ls, case, torch.float32)
+        for order in (1, 2, LEVELS):
+            kw = dict(num_levels=LEVELS, base="rbf", difference=True,
+                      symmetric=case[4], order=order)
+            for name, kern, plain in (
+                    ("seq_fwd", lambda: sc.seq_fwd(*r, **kw),
+                     lambda: sc.seq_fwd_plain(*r, **kw)),
+                    ("seq_bwd", lambda: sc.seq_bwd(*r, ct, **kw),
+                     lambda: sc.seq_bwd_plain(*r, ct, **kw))):
+                p1, k1, k2, p2 = (time_cuda(plain, reps=5), time_cuda(kern),
+                                  time_cuda(kern), time_cuda(plain, reps=5))
+                b_ms, b_by = seq_bound_ms(name, case, order=order)
+                rows.append(dict(kernel=name, gram=key, order=order,
+                                 ms=[k1, k2], plain_ms=[p1, p2],
+                                 bound_ms=b_ms, bound_by=b_by))
+                print(f"  {name} ({key}, order {order}): kernel {k1:.4f} / "
+                      f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, bound "
+                      f"{b_ms:.4f} ms ({b_by})")
+    return rows
+
+
 def main() -> None:
     # phase 1: device and build
     check(torch.cuda.is_available(), "CUDA is not available")
@@ -1940,7 +2126,8 @@ def main() -> None:
     if "--kernel-times" in sys.argv[1:]:
         # phase 1 (the main library) and phase 4a alone: a quick comparison
         # of two checkouts, each run with its own copy of this script
-        (lib, build_s), = build_libraries(_cuda_build, levels=()).values()
+        (lib, build_s), = build_libraries(_cuda_build, levels=(),
+                                          orders=()).values()
         print(f"phase 1: built {lib.path.parent.name} in {build_s:.1f} s")
         print(f"phase 4a: kernel times ({card})")
         rows = time_kernels(ic, ut, synthetic_data()[0])
@@ -1953,6 +2140,8 @@ def main() -> None:
           f"{build_s:.1f} s, " + ", ".join(
               f"{libs[m][0].path.parent.name} ({m} levels) in "
               f"{libs[m][1]:.1f} s" for m in LEVEL_LIBS)
+          + ", " + ", ".join(f"{libs[k][0].path.parent.name} (order {k[1]})"
+                             for k in ORDER_LIBS)
           + f", at once; ptxas, K1, K2, K3 and K5 at {LEVELS} levels:")
     print_ptxas(ptxas[1], lambda r: r["args"][:1] == [LEVELS]
                 and r["args"][-1] == 0 and (
@@ -1967,6 +2156,11 @@ def main() -> None:
     print_ptxas(ptxas[WIDE_LEVELS], lambda r: r["kernel"].startswith("kzx_fwd"))
     print(f"  every kernel at {MANY_LEVELS} levels:")
     print_ptxas(ptxas[MANY_LEVELS], lambda r: True)
+    for key in ORDER_LIBS:
+        print(f"  K5 and K6 at {key[0]} levels, order {key[1]} "
+              f"({libs[key][0].path.parent.name}, built in "
+              f"{libs[key][1]:.1f} s):")
+        print_ptxas(ptxas[key], lambda r: True)
 
     print("set-up: benchmark-width models from the seed")
     X, y = synthetic_data()
@@ -2020,6 +2214,19 @@ def main() -> None:
                                                            "sequences")
     print("  9e: predict_f(full_cov=True) on the tensors model")
     m12_full_cov = full_cov_check(T, m12_model, X, bound=KINK_FWD)
+    print("phase 10: order > 1 (the (order x order) grid in K5/K6)")
+    print("  10a: K5/K6 at orders 2, 4 (4 levels) and 3 (9 levels) against "
+          "their plain versions")
+    order_checks = order_kernel_checks(sc, ic, Zs, X, ls)
+    print("  10b: the order-2 inducing-sequences model")
+    o2_smodel, o2_spred, o2_sequences = drive_order_model(
+        T, ut, X, y, "sequences", 2)
+    print("  10c: the order-2 inducing-tensors model")
+    o2_model, o2_pred, o2_tensors = drive_order_model(T, ut, X, y,
+                                                      "tensors", 2)
+    print(f"  10d: the order-{LEVELS} (full grid) inducing-sequences model")
+    o4_smodel, o4_spred, o4_sequences = drive_order_model(
+        T, ut, X, y, "sequences", LEVELS)
     print(f"phase 4: times ({card})")
     ktimes = (time_kernels(ic, ut, X) + time_seq_kernels(sc, ic, Zs, X, ls)
               + time_extra_levels(ic, sc))
@@ -2038,6 +2245,17 @@ def main() -> None:
     print("  matern12, inducing sequences:")
     m12_s_latency = time_requests(m12_spred, X)
     m12_s_train_time = time_training(T, m12_smodel, X, y)
+    print(f"phase 10e: order > 1 times ({card})")
+    order_times = time_order_kernels(sc, ic, Zs, X, ls)
+    order_models = {}
+    for name, (mdl, prd, res) in {
+            "order2_sequences": (o2_smodel, o2_spred, o2_sequences),
+            "order2_tensors": (o2_model, o2_pred, o2_tensors),
+            f"order{LEVELS}_sequences": (o4_smodel, o4_spred,
+                                         o4_sequences)}.items():
+        print(f"  {name}:")
+        order_models[name] = dict(res, request_latency=time_requests(prd, X),
+                                  training_time=time_training(T, mdl, X, y))
     check("jax" not in sys.modules, "something imported jax")
 
     kernels = []
@@ -2083,13 +2301,31 @@ def main() -> None:
                             if r["kernel"] == name),
             ms=float(np.mean(t["ms"])), plain_ms=float(np.mean(t["plain_ms"])),
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None))
+    for order, res in ((2, o2_sequences), (LEVELS, o4_sequences)):
+        # at the sequences model's Kzx shape, with its training launches
+        for name in ("seq_fwd", "seq_bwd"):
+            _, src, replaces = KERNELS[name]
+            t = next(r for r in order_times if r["kernel"] == name
+                     and r["gram"] == "Kzx" and r["order"] == order)
+            kernels.append(dict(
+                name=f"{name} (order {order})", route="cuda", source=src,
+                replaces=replaces, launches=res["training_launches"][name],
+                max_abs_err=max(r["err_vs_plain_f32"] for r in order_checks
+                                if r["kernel"] == name
+                                and r["order"] == order),
+                ms=float(np.mean(t["ms"])),
+                plain_ms=float(np.mean(t["plain_ms"])),
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                library_ms=None))
     details = dict(card=card, torch=torch.__version__,
                    cuda=torch.version.cuda, build_s=build_s,
-                   build_levels_s={m: libs[m][1] for m in LEVEL_LIBS},
+                   build_levels_s={str(m): libs[m][1]
+                                   for m in (*LEVEL_LIBS, *ORDER_LIBS)},
                    ptxas=lib.ptxas_report,
-                   ptxas_levels={m: libs[m][0].ptxas_report
-                                 for m in LEVEL_LIBS},
-                   ptxas_summary=ptxas, kernel_checks=checks,
+                   ptxas_levels={str(m): libs[m][0].ptxas_report
+                                 for m in (*LEVEL_LIBS, *ORDER_LIBS)},
+                   ptxas_summary={str(k): v for k, v in ptxas.items()},
+                   kernel_checks=checks,
                    expm1=expm1, fused_kzz=fused_kzz,
                    serving_launches=serve_launches, requests=requests,
                    full_cov=full_cov, gradient_check=grads,
@@ -2112,6 +2348,8 @@ def main() -> None:
                                       request_latency=m12_s_latency,
                                       training_time=m12_s_train_time),
                        kernel_times=m12_times),
+                   orders=dict(kernel_checks=order_checks,
+                               kernel_times=order_times, **order_models),
                    kernel_times=ktimes, request_latency=latency,
                    training_time=train_time, kernels=kernels,
                    seconds=time.perf_counter() - T0)

@@ -561,6 +561,128 @@ __device__ __forceinline__ float group_sum(float v, int G) {
   return v;
 }
 
+// ---------------------------------------------------------------------------
+// order > 1 (seq_fwd.cu, seq_bwd.cu): the (order x order) grid of partial
+// tensors of signature_pallas._pair_levels_fwd (:306-324).  Level i (d =
+// min(i, ORD)) holds tiles R_i(a, b), a, b < d; at outer step s, with M the
+// row's increment Grams,
+//   R_i(0, 0)  = M P(sum of all tiles of level i-1)      2-D prefix
+//   R_i(0, b)  = M cc_{i-1, b-1} / (b + 1)                column carry only
+//   R_i(a, 0)  = M Q(rowmarg_{i-1, a-1}) / (a + 1)        in-row prefix only
+//   R_i(a, b)  = M R_{i-1}(a-1, b-1) / ((a + 1)(b + 1))   pointwise
+// where cc_{i, c}[t] = sum_{s' < s} sum_a R_i(a, c)[s', t] is carried over
+// the rows, rowmarg_{i, c} = sum_b R_i(c, b) at this row, and Q is the
+// exclusive prefix along the inner steps at this row.  So level i carries
+// d column sums where order 1 carries one, and takes d exclusive scans a
+// row (one 2-D, d - 1 in-row) where order 1 takes one.  At ORD == 1 the
+// counts below reduce to order 1's: M - 1 carries and M - 1 scans a row.
+template <int ORD>
+__host__ __device__ constexpr int grid_d(int i) {
+  return i < ORD ? i : ORD;
+}
+// column carries a row and inner step: levels 1 .. M-1, d of each
+template <int M, int ORD>
+__host__ __device__ constexpr int grid_nc() {
+  int n = 0;
+  for (int i = 1; i < M; ++i) n += grid_d<ORD>(i);
+  return n;
+}
+// scans a row: levels 2 .. M, d of each (slot 0 the 2-D prefix, a the
+// in-row prefix of rowmarg_{i-1, a-1})
+template <int M, int ORD>
+__host__ __device__ constexpr int grid_ns() {
+  int n = 0;
+  for (int i = 2; i <= M; ++i) n += grid_d<ORD>(i);
+  return n;
+}
+// tiles of levels 2 .. M
+template <int M, int ORD>
+__host__ __device__ constexpr int grid_nt() {
+  int n = 0;
+  for (int i = 2; i <= M; ++i) n += grid_d<ORD>(i) * grid_d<ORD>(i);
+  return n;
+}
+template <int ORD>
+__host__ __device__ constexpr int grid_cc_at(int i, int c) {
+  int n = 0;
+  for (int i2 = 1; i2 < i; ++i2) n += grid_d<ORD>(i2);
+  return n + c;
+}
+template <int ORD>
+__host__ __device__ constexpr int grid_slot(int i, int a) {
+  int n = 0;
+  for (int i2 = 2; i2 < i; ++i2) n += grid_d<ORD>(i2);
+  return n + a;
+}
+template <int ORD>
+__host__ __device__ constexpr int grid_tile(int i, int a, int b) {
+  int n = 0;
+  for (int i2 = 2; i2 < i; ++i2) n += grid_d<ORD>(i2) * grid_d<ORD>(i2);
+  return n + a * grid_d<ORD>(i) + b;
+}
+
+// One row of the grid: the coefficients coef_i(a, b) = R_i(a, b) / M of
+// levels 2 .. M at the lane's CPL inner steps, from the row's increment
+// Grams Mv, the incoming column carries cc (rows before, grid_cc_at) and
+// scan(x, y, slot), the caller's exclusive prefix along the inner steps
+// (in-lane, over the group, and over the chunks before; grid_slot names
+// the scan).  Every index is a compile-time constant once unrolled.
+template <int M, int ORD, int CPL, typename Scan>
+__device__ __forceinline__ void grid_row(
+    const float (&Mv)[CPL], const float (&cc)[grid_nc<M, ORD>()][CPL],
+    Scan&& scan, float (&coef)[grid_nt<M, ORD>()][CPL]) {
+#pragma unroll
+  for (int i = 2; i <= M; ++i) {
+    const int d = grid_d<ORD>(i), dp = grid_d<ORD>(i - 1);
+    // R_{i-1}(p, q) at this row
+    auto prev = [&](int p, int q, int j) {
+      return i == 2 ? Mv[j] : Mv[j] * coef[grid_tile<ORD>(i - 1, p, q)][j];
+    };
+    float x[CPL], y[CPL];
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      x[j] = 0.f;
+#pragma unroll
+      for (int c = 0; c < ORD; ++c)
+        if (c < dp) x[j] += cc[grid_cc_at<ORD>(i - 1, c)][j];
+    }
+    scan(x, y, grid_slot<ORD>(i, 0));
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) coef[grid_tile<ORD>(i, 0, 0)][j] = y[j];
+#pragma unroll
+    for (int b = 1; b < ORD; ++b)
+      if (b < d) {
+#pragma unroll
+        for (int j = 0; j < CPL; ++j)
+          coef[grid_tile<ORD>(i, 0, b)][j] =
+              cc[grid_cc_at<ORD>(i - 1, b - 1)][j] / static_cast<float>(b + 1);
+      }
+#pragma unroll
+    for (int a = 1; a < ORD; ++a)
+      if (a < d) {
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          x[j] = 0.f;
+#pragma unroll
+          for (int b = 0; b < ORD; ++b)
+            if (b < dp) x[j] += prev(a - 1, b, j);
+        }
+        scan(x, y, grid_slot<ORD>(i, a));
+#pragma unroll
+        for (int j = 0; j < CPL; ++j)
+          coef[grid_tile<ORD>(i, a, 0)][j] = y[j] / static_cast<float>(a + 1);
+#pragma unroll
+        for (int b = 1; b < ORD; ++b)
+          if (b < d) {
+#pragma unroll
+            for (int j = 0; j < CPL; ++j)
+              coef[grid_tile<ORD>(i, a, b)][j] =
+                  prev(a - 1, b - 1, j) / static_cast<float>((a + 1) * (b + 1));
+          }
+      }
+  }
+}
+
 // One round of warp_reduce_scatter32: the lanes whose bit H is set keep
 // the upper H of their 2H values, the others the lower H, and each adds
 // the partner's copy of the half it keeps (the partner is H lanes away).
@@ -616,4 +738,22 @@ static_assert(GPSIG_EXTRA_LEVELS > gpsig::kMaxLevels,
     case 8: return static_cast<int>(FN<8>(__VA_ARGS__));            \
     default: return static_cast<int>(cudaErrorInvalidValue);        \
   }
+#endif
+
+// K5 and K6 (seq_fwd.cu, seq_bwd.cu) take the order too.  The main library,
+// and one built for a level count, holds order 1; one built with
+// -DGPSIG_ORDER=k -DGPSIG_ORDER_LEVELS=M (ops/_cuda_build.py) holds K5 and
+// K6 at order k and M levels alone.
+#ifdef GPSIG_ORDER
+static_assert(GPSIG_ORDER > 1 && GPSIG_ORDER <= GPSIG_ORDER_LEVELS,
+              "an order library holds 1 < order <= its level count");
+#define GPSIG_SWITCH_SEQ(num_levels, order, FN, ...)                       \
+  if ((num_levels) == GPSIG_ORDER_LEVELS && (order) == GPSIG_ORDER)        \
+    return static_cast<int>(                                               \
+        FN<GPSIG_ORDER_LEVELS, GPSIG_ORDER>(__VA_ARGS__));                 \
+  return static_cast<int>(cudaErrorInvalidValue);
+#else
+#define GPSIG_SWITCH_SEQ(num_levels, order, FN, ...)                       \
+  if ((order) != 1) return static_cast<int>(cudaErrorInvalidValue);        \
+  GPSIG_SWITCH_LEVELS(num_levels, FN, __VA_ARGS__)
 #endif

@@ -98,16 +98,18 @@ namespace {
 constexpr int kWarpsPerBlock = kSeqWarps;
 
 // A warp's workspace, nc chunks of [in_v, in_d, acc_v, acc_d][d2][cpl][32],
-// and its column-sum store, nc chunks of [To][M-1][cpl][32] and, with more
-// than one chunk, the row carries [nc][To][M-1][32] and the suffix carries
-// [To][M-1][32] (floats; ops/signature_cuda.py sizes them the same way).
+// and its column-sum store, nc chunks of [To][NC][cpl][32] and, with more
+// than one chunk, the row carries [nc][To][NS][32] and the suffix carries
+// [To][NS][32] (floats; NC column sums and NS scans a row, M - 1 each at
+// order 1, common.cuh::grid_nc / grid_ns; ops/signature_cuda.py sizes them
+// the same way).
 __host__ __device__ inline size_t seq_bwd_ws_floats(int d2, int cpl, int nc) {
   return 4 * static_cast<size_t>(d2) * cpl * 32 * nc;
 }
-__host__ __device__ inline size_t seq_bwd_cs_floats(int M, int To, int cpl,
-                                                    int nc) {
-  const size_t per = static_cast<size_t>(To) * (M - 1) * 32;
-  return per * cpl * nc + (nc > 1 ? per * (nc + 1) : 0);
+__host__ __device__ inline size_t seq_bwd_cs_floats(int NC, int NS, int To,
+                                                    int cpl, int nc) {
+  const size_t per = static_cast<size_t>(To) * 32;
+  return per * NC * cpl * nc + (nc > 1 ? per * NS * (nc + 1) : 0);
 }
 
 // Four consecutive values p[c .. c+3] of an outer row (zeros past d2): one
@@ -178,8 +180,9 @@ __device__ __forceinline__ void seq_rows_dots(
 // taken together, whose dots, partials and contractions are independent
 // (only the level carries are serial), so they overlap and share each load
 // of an inner value and of an inner gradient; D2: d2 as a compile-time
-// constant (the benchmark's 16), or 0 for any d2; M12: matern12.
-template <int M, int CPL, int R, int D2, bool M12>
+// constant (the benchmark's 16), or 0 for any d2; M12: matern12; ORD: the
+// order (common.cuh::grid_row past 1, one row at a time).
+template <int M, int ORD, int CPL, int R, int D2, bool M12>
 __global__ void __launch_bounds__(kSeqThreads)
 seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
                const float* __restrict__ iv, const float* __restrict__ id,
@@ -191,6 +194,12 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
                int nc, int n_ranges, int ws_mode, int vec4) {
   if (D2 > 0) d2 = D2;  // the launcher checked d2 == D2
   constexpr int MC = M > 1 ? M - 1 : 1;
+  // column sums stored and scans a row (M - 1 each at order 1), and the
+  // grid's tiles of levels 2 .. M
+  constexpr int NC = ORD > 1 ? grid_nc<M, ORD>() : M - 1;
+  constexpr int NS = grid_ns<M, ORD>();
+  constexpr int NT = ORD > 1 ? grid_nt<M, ORD>() : 1;
+  static_assert(ORD == 1 || R == 1, "order > 1 takes one row at a time");
   constexpr int CB = 16 / R;  // channels a contraction round: R x 2 x CB = 32
   constexpr int NW = M12 ? 6 : 4;  // weights an entry
   extern __shared__ float smem[];
@@ -209,7 +218,7 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
 
   // this warp's workspace and column-sum store, in shared or global memory
   const size_t ws_floats = seq_bwd_ws_floats(d2, cpl, nc);
-  const size_t cs_floats = seq_bwd_cs_floats(M, To, cpl, nc);
+  const size_t cs_floats = seq_bwd_cs_floats(NC, NS, To, cpl, nc);
   float* ws;
   float* cs;
   if (ws_mode == 0) {
@@ -230,14 +239,15 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
   const int W = G * cpl;
   const int cstride = cpl * 32;
   const size_t chunk_ws = 4 * static_cast<size_t>(d2) * cstride;
-  const size_t chunk_cs = static_cast<size_t>(To) * (M - 1) * cstride;
-  // with chunks: the row carries Y[ch][s][k][lane] (P(R_{k+1}) at row s
-  // over the inner steps before chunk ch) and the suffix carries
-  // Z[s][k][lane] (P^T over the steps after the chunk the reverse is on)
-  const size_t chunk_y = static_cast<size_t>(To) * (M - 1) * 32;
+  const size_t chunk_cs = static_cast<size_t>(To) * NC * cstride;
+  // with chunks: the row carries Y[ch][s][k][lane] (scan k at row s over
+  // the inner steps before chunk ch; at order 1 P(R_{k+1})) and the suffix
+  // carries Z[s][k][lane] (its adjoint over the steps after the chunk the
+  // reverse is on)
+  const size_t chunk_y = static_cast<size_t>(To) * NS * 32;
   float* ycar = cs + nc * chunk_cs;
   float* zcar = ycar + nc * chunk_y;
-  auto carry_at = [&](int s, int k) { return (s * (M - 1) + k) * 32 + lane; };
+  auto carry_at = [&](int s, int k) { return (s * NS + k) * 32 + lane; };
 
   // stage the set's inner rows, every chunk (zeros past the sequence or
   // the set)
@@ -306,10 +316,15 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
       float nin[CPL];
       inner_norms(ch, nin);
       float Cs[MC][CPL];
+      float cc[NC > 0 ? NC : 1][CPL];  // order > 1: the grid's column carries
 #pragma unroll
       for (int k = 0; k < MC; ++k)
 #pragma unroll
         for (int j = 0; j < CPL; ++j) Cs[k][j] = 0.f;
+#pragma unroll
+      for (int k = 0; k < (NC > 0 ? NC : 1); ++k)
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) cc[k][j] = 0.f;
       for (int s0 = 0; s0 < To; s0 += R) {
         int srow[R];
 #pragma unroll
@@ -321,6 +336,55 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
         for (int r = 0; r < R; ++r) {
           const int s = s0 + r;
           if (s >= To) break;
+          const float nos = outer_norm(s);
+          if constexpr (ORD > 1) {
+            // the row's incoming column carries, then its grid: level i's
+            // carries take its tiles' column sums, and with chunks each
+            // scan's total goes into the next chunk's row carry
+#pragma unroll
+            for (int k = 0; k < NC; ++k)
+#pragma unroll
+              for (int j = 0; j < CPL; ++j)
+                if (j < cpl)
+                  cs_c[((s * NC + k) * cpl + j) * 32 + lane] = cc[k][j];
+            float mv[CPL];
+#pragma unroll
+            for (int j = 0; j < CPL; ++j)
+              mv[j] = inner_ok(j) ? slot_gram_zz<false, M12>(
+                                        a00[r][j], d01[r][j], d10[r][j],
+                                        dxx[r][j], base, diff, nos, nin[j])
+                                  : 0.f;
+            auto scan = [&](const float (&x)[CPL], float (&y)[CPL],
+                            int slot) {
+              const float tot = group_excl_scan(x, y, cpl, lg, G);
+              if (chunked) {
+                const float y0 =
+                    ch > 0 ? ycar[ch * chunk_y + carry_at(s, slot)] : 0.f;
+#pragma unroll
+                for (int j = 0; j < CPL; ++j) y[j] += y0;
+                if (ch + 1 < nc)
+                  ycar[(ch + 1) * chunk_y + carry_at(s, slot)] = y0 + tot;
+              }
+            };
+            float coef[NT][CPL];
+            grid_row<M, ORD, CPL>(mv, cc, scan, coef);
+#pragma unroll
+            for (int j = 0; j < CPL; ++j) {
+              cc[0][j] += mv[j];
+#pragma unroll
+              for (int i = 2; i < M; ++i) {
+                const int d = grid_d<ORD>(i);
+#pragma unroll
+                for (int a = 0; a < ORD; ++a)
+#pragma unroll
+                  for (int b = 0; b < ORD; ++b)
+                    if (a < d && b < d)
+                      cc[grid_cc_at<ORD>(i, b)][j] +=
+                          mv[j] * coef[grid_tile<ORD>(i, a, b)][j];
+              }
+            }
+            continue;
+          }
 #pragma unroll
           for (int k = 0; k < M - 1; ++k)
 #pragma unroll
@@ -344,7 +408,6 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
                 ycar[(ch + 1) * chunk_y + carry_at(s, m - 2)] = y + tot;
             }
           }
-          const float nos = outer_norm(s);
 #pragma unroll
           for (int j = 0; j < CPL; ++j) {
             const float mv =
@@ -375,18 +438,28 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
       float nin[CPL];
       inner_norms(ch, nin);
       float D[MC][CPL];
+      // order > 1: per level i < M the column suffixes over rows > s of
+      // M Rbar_{i+1}(0, 0) (slot 0, the double suffix's) and of M Rbar_{i+1}
+      // (0, c + 1) / (c + 2) (slot c + 1, Tbar's)
+      float Dg[ORD > 1 ? MC : 1][ORD][CPL];
 #pragma unroll
       for (int k = 0; k < MC; ++k)
 #pragma unroll
         for (int j = 0; j < CPL; ++j) D[k][j] = 0.f;
+#pragma unroll
+      for (int k = 0; k < (ORD > 1 ? MC : 1); ++k)
+#pragma unroll
+        for (int c = 0; c < ORD; ++c)
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) Dg[k][c][j] = 0.f;
       for (int s_hi = To - 1; s_hi >= 0; s_hi -= R) {
         int srow[R];
 #pragma unroll
         for (int r = 0; r < R; ++r) srow[r] = max(s_hi - r, 0);
-        // P(R_{m-1}) at each row, from the stored column sums
+        // P(R_{m-1}) at each row, from the stored column sums (order 1)
         float P[R][MC][CPL];
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
+        for (int r = 0; r < R && ORD == 1; ++r) {
           float C[MC][CPL];
 #pragma unroll
           for (int k = 0; k < MC; ++k)
@@ -440,30 +513,141 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const int s = s_hi - r;
-          float mbar[CPL], prev[CPL];
+          float mbar[CPL];
+          if constexpr (ORD > 1) {
+            // level i's tiles at this row, recomputed from the stored
+            // column carries and the row carries of the chunks before
+            // (read, never recovered by subtraction)
+            float ccr[NC > 0 ? NC : 1][CPL];
 #pragma unroll
-          for (int j = 0; j < CPL; ++j) {
-            prev[j] = g[M];
-            mbar[j] = M >= 2 ? P[r][M >= 2 ? M - 2 : 0][j] * g[M] : g[M];
-          }
+            for (int k = 0; k < NC; ++k)
 #pragma unroll
-          for (int m = M - 1; m >= 1; --m) {
-            float t[CPL];
-            const float tot = group_rev_excl_scan(D[m - 1], t, cpl, lg, G);
-            if (chunked && s >= 0) {  // P^T over the chunks after this one
-              const float z =
-                  ch + 1 < nc ? zcar[carry_at(s, m - 1)] : 0.f;
+              for (int j = 0; j < CPL; ++j)
+                ccr[k][j] = j < cpl ? cs_c[((s * NC + k) * cpl + j) * 32 +
+                                           lane]
+                                    : 0.f;
+            auto scan = [&](const float (&x)[CPL], float (&y)[CPL],
+                            int slot) {
+              group_excl_scan(x, y, cpl, lg, G);
+              if (chunked && ch > 0) {
+                const float y0 = ycar[ch * chunk_y + carry_at(s, slot)];
 #pragma unroll
-              for (int j = 0; j < CPL; ++j) t[j] += z;
-              if (ch > 0) zcar[carry_at(s, m - 1)] = z + tot;
-            }
+                for (int j = 0; j < CPL; ++j) y[j] += y0;
+              }
+            };
+            float coef[NT][CPL];
+            grid_row<M, ORD, CPL>(Mv[r], ccr, scan, coef);
+            // the adjoint suffix of x along the inner steps at this row,
+            // with the chunks after (scan `slot`'s suffix carry)
+            auto rscan = [&](const float (&x)[CPL], float (&y)[CPL],
+                             int slot) {
+              const float tot = group_rev_excl_scan(x, y, cpl, lg, G);
+              if (chunked) {
+                const float z = ch + 1 < nc ? zcar[carry_at(s, slot)] : 0.f;
+#pragma unroll
+                for (int j = 0; j < CPL; ++j) y[j] += z;
+                if (ch > 0) zcar[carry_at(s, slot)] = z + tot;
+              }
+            };
+            // rb: Rbar_{i+1}(a, b) at this row, from level M down
+            float rb[ORD][ORD][CPL];
 #pragma unroll
             for (int j = 0; j < CPL; ++j) {
-              const float rb = g[m] + t[j];
-              D[m - 1][j] = fmaf(Mv[r][j], prev[j], D[m - 1][j]);
-              mbar[j] = m >= 2 ? fmaf(P[r][m >= 2 ? m - 2 : 0][j], rb, mbar[j])
-                               : mbar[j] + rb;
-              prev[j] = rb;
+              mbar[j] = 0.f;
+#pragma unroll
+              for (int a = 0; a < ORD; ++a)
+#pragma unroll
+                for (int b = 0; b < ORD; ++b) {
+                  rb[a][b][j] = g[M];
+                  if (a < grid_d<ORD>(M) && b < grid_d<ORD>(M))
+                    mbar[j] = fmaf(coef[grid_tile<ORD>(M, a, b)][j], g[M],
+                                   mbar[j]);
+                }
+            }
+#pragma unroll
+            for (int i = M - 1; i >= 1; --i) {
+              const int dq = grid_d<ORD>(i + 1), di = grid_d<ORD>(i);
+              float S[CPL], U[ORD][CPL], x[CPL];
+              // (0, 0) of level i+1: the double suffix, into every tile
+              rscan(Dg[i - 1][0], S, grid_slot<ORD>(i + 1, 0));
+              // (c + 1, 0) of level i+1: the in-row suffix Ubar, into
+              // level i's row c
+#pragma unroll
+              for (int c = 0; c + 1 < ORD; ++c)
+                if (c + 1 < dq) {
+#pragma unroll
+                  for (int j = 0; j < CPL; ++j)
+                    x[j] = Mv[r][j] * rb[c + 1][0][j] /
+                           static_cast<float>(c + 2);
+                  rscan(x, U[c], grid_slot<ORD>(i + 1, c + 1));
+                }
+              float rn[ORD][ORD][CPL];
+#pragma unroll
+              for (int a = 0; a < ORD; ++a)
+#pragma unroll
+                for (int b = 0; b < ORD; ++b)
+#pragma unroll
+                  for (int j = 0; j < CPL; ++j) {
+                    float v = g[i] + S[j];
+                    // (0, b + 1) of level i+1: the column suffix Tbar
+                    if (b + 1 < dq) v += Dg[i - 1][b + 1][j];
+                    if (a + 1 < dq) v += U[a][j];
+                    // (a + 1, b + 1) of level i+1: pointwise
+                    if (a + 1 < dq && b + 1 < dq)
+                      v += Mv[r][j] * rb[a + 1][b + 1][j] /
+                           static_cast<float>((a + 2) * (b + 2));
+                    rn[a][b][j] = v;
+                  }
+#pragma unroll
+              for (int j = 0; j < CPL; ++j) {
+                Dg[i - 1][0][j] = fmaf(Mv[r][j], rb[0][0][j], Dg[i - 1][0][j]);
+#pragma unroll
+                for (int c = 0; c + 1 < ORD; ++c)
+                  if (c + 1 < dq)
+                    Dg[i - 1][c + 1][j] += Mv[r][j] * rb[0][c + 1][j] /
+                                           static_cast<float>(c + 2);
+              }
+#pragma unroll
+              for (int a = 0; a < ORD; ++a)
+#pragma unroll
+                for (int b = 0; b < ORD; ++b)
+#pragma unroll
+                  for (int j = 0; j < CPL; ++j) {
+                    if (a < di && b < di)
+                      mbar[j] = i >= 2 ? fmaf(coef[grid_tile<ORD>(
+                                                  i >= 2 ? i : 2, a, b)][j],
+                                              rn[a][b][j], mbar[j])
+                                       : mbar[j] + rn[a][b][j];
+                    rb[a][b][j] = rn[a][b][j];
+                  }
+            }
+          } else {
+            float prev[CPL];
+#pragma unroll
+            for (int j = 0; j < CPL; ++j) {
+              prev[j] = g[M];
+              mbar[j] = M >= 2 ? P[r][M >= 2 ? M - 2 : 0][j] * g[M] : g[M];
+            }
+#pragma unroll
+            for (int m = M - 1; m >= 1; --m) {
+              float t[CPL];
+              const float tot = group_rev_excl_scan(D[m - 1], t, cpl, lg, G);
+              if (chunked && s >= 0) {  // P^T over the chunks after this one
+                const float z =
+                    ch + 1 < nc ? zcar[carry_at(s, m - 1)] : 0.f;
+#pragma unroll
+                for (int j = 0; j < CPL; ++j) t[j] += z;
+                if (ch > 0) zcar[carry_at(s, m - 1)] = z + tot;
+              }
+#pragma unroll
+              for (int j = 0; j < CPL; ++j) {
+                const float rb = g[m] + t[j];
+                D[m - 1][j] = fmaf(Mv[r][j], prev[j], D[m - 1][j]);
+                mbar[j] = m >= 2
+                              ? fmaf(P[r][m >= 2 ? m - 2 : 0][j], rb, mbar[j])
+                              : mbar[j] + rb;
+                prev[j] = rb;
+              }
             }
           }
 #pragma unroll
@@ -574,7 +758,7 @@ seq_bwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
   }
 }
 
-template <int M, int CPL, int R, int D2, bool M12>
+template <int M, int ORD, int CPL, int R, int D2, bool M12>
 cudaError_t launch_seq_bwd_tiles(const float* ov, const float* od,
                                  const float* iv, const float* id,
                                  const float* no, const float* ni,
@@ -586,13 +770,15 @@ cudaError_t launch_seq_bwd_tiles(const float* ov, const float* od,
                                  int ws_mode, int vec4, cudaStream_t stream) {
   const int To = difference ? L_out - 1 : L_out;
   const long long ws = seq_bwd_ws_floats(d2, cpl, nc);
-  const long long cs = seq_bwd_cs_floats(M, To, cpl, nc);
+  constexpr int NC = ORD > 1 ? grid_nc<M, ORD>() : M - 1;
+  constexpr int NS = grid_ns<M, ORD>();
+  const long long cs = seq_bwd_cs_floats(NC, NS, To, cpl, nc);
   const long long per_warp = ws_mode == 0 ? ws + cs : ws_mode == 1 ? ws : 0;
   const long long smem = per_warp * kWarpsPerBlock * sizeof(float);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        seq_bwd_kernel<M, CPL, R, D2, M12>,
+        seq_bwd_kernel<M, ORD, CPL, R, D2, M12>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
@@ -602,20 +788,23 @@ cudaError_t launch_seq_bwd_tiles(const float* ov, const float* od,
       static_cast<long long>((n_in + gps - 1) / gps) * n_ranges;
   const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  seq_bwd_kernel<M, CPL, R, D2, M12><<<static_cast<unsigned>(blocks),
-                                       kSeqThreads, static_cast<size_t>(smem),
-                                       stream>>>(
+  seq_bwd_kernel<M, ORD, CPL, R, D2, M12><<<static_cast<unsigned>(blocks),
+                                            kSeqThreads,
+                                            static_cast<size_t>(smem),
+                                            stream>>>(
       ov, od, iv, id, no, ni, ct, g_out, g_in, gscratch, n_out, L_out, n_in,
       L_in, d2, base, difference, symmetric, swap, G, cpl, nc, n_ranges,
       ws_mode, vec4);
   return cudaGetLastError();
 }
 
-// One inner step a lane (inner length <= 32): four outer rows together,
-// with d2 = 16 (the benchmark's) a compile-time constant; more: one row at
-// a time, with room for kSeqCols steps a lane.  Outer rows are read as
-// float4s when d2 is a multiple of 4 and the rows are aligned.
-template <int M, bool M12>
+// One inner step a lane (inner length <= 32): four outer rows together
+// (order 1; one at a higher order), with d2 = 16 (the benchmark's) a
+// compile-time constant (not at an order past 1 with more than kMaxLevels
+// levels, as in seq_fwd.cu); more: one row at a time, with room for
+// kSeqCols steps a lane.  Outer rows are read as float4s when d2 is a multiple of 4
+// and the rows are aligned.
+template <int M, int ORD, bool M12>
 cudaError_t launch_seq_bwd_base(const float* ov, const float* od,
                                 const float* iv, const float* id,
                                 const float* no, const float* ni,
@@ -629,17 +818,20 @@ cudaError_t launch_seq_bwd_base(const float* ov, const float* od,
                    (reinterpret_cast<uintptr_t>(ov) |
                     reinterpret_cast<uintptr_t>(od)) % 16 == 0;
 #define GPSIG_SEQ_BWD(CPL, R, D2)                                            \
-  return launch_seq_bwd_tiles<M, CPL, R, D2, M12>(                           \
+  return launch_seq_bwd_tiles<M, ORD, CPL, R, D2, M12>(                      \
       ov, od, iv, id, no, ni, ct, g_out, g_in, gscratch, n_out, L_out, n_in, \
       L_in, d2, base, difference, symmetric, swap, G, cpl, nc, n_ranges,     \
       ws_mode, vec4, stream)
-  if (cpl == 1 && d2 == 16) GPSIG_SEQ_BWD(1, 4, 16);
-  if (cpl == 1) GPSIG_SEQ_BWD(1, 4, 0);
+  constexpr int RS = ORD > 1 ? 1 : 4;  // rows together, one inner step a lane
+  if constexpr (ORD == 1 || M <= kMaxLevels) {  // see above
+    if (cpl == 1 && d2 == 16) GPSIG_SEQ_BWD(1, RS, 16);
+  }
+  if (cpl == 1) GPSIG_SEQ_BWD(1, RS, 0);
   GPSIG_SEQ_BWD(kSeqCols, 1, 0);
 #undef GPSIG_SEQ_BWD
 }
 
-template <int M>
+template <int M, int ORD = 1>
 cudaError_t launch_seq_bwd(const float* ov, const float* od, const float* iv,
                            const float* id, const float* no, const float* ni,
                            const float* ct, float* g_out, float* g_in,
@@ -647,8 +839,8 @@ cudaError_t launch_seq_bwd(const float* ov, const float* od, const float* iv,
                            int L_in, int d2, int base, int difference,
                            int symmetric, int swap, int G, int cpl, int nc,
                            int n_ranges, int ws_mode, cudaStream_t stream) {
-  return (base == kMatern12 ? launch_seq_bwd_base<M, true>
-                            : launch_seq_bwd_base<M, false>)(
+  return (base == kMatern12 ? launch_seq_bwd_base<M, ORD, true>
+                            : launch_seq_bwd_base<M, ORD, false>)(
       ov, od, iv, id, no, ni, ct, g_out, g_in, gscratch, n_out, L_out, n_in,
       L_in, d2, base, difference, symmetric, swap, G, cpl, nc, n_ranges,
       ws_mode, stream);
@@ -662,7 +854,8 @@ extern "C" int gpsig_seq_bwd(const float* ov, const float* od,
                              const float* no, const float* ni,
                              const float* ct, float* g_out, float* g_in,
                              float* gscratch, int n_out, int L_out, int n_in,
-                             int L_in, int d2, int num_levels, int base,
+                             int L_in, int d2, int num_levels, int order,
+                             int base,
                              int difference, int symmetric, int swap, int G,
                              int cpl, int nc, int n_ranges, int ws_mode,
                              void* stream) {
@@ -676,9 +869,8 @@ extern "C" int gpsig_seq_bwd(const float* ov, const float* od,
       (symmetric && (n_out != n_in || L_out != L_in || swap)) ||
       !gpsig::base_ok(base, no, ni))
     return static_cast<int>(cudaErrorInvalidValue);
-  GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_seq_bwd, ov, od, iv, id, no,
-                      ni, ct,
-                      g_out, g_in, gscratch, n_out, L_out, n_in, L_in, d2,
-                      base, difference, symmetric, swap, G, cpl, nc,
-                      n_ranges, ws_mode, static_cast<cudaStream_t>(stream))
+  GPSIG_SWITCH_SEQ(num_levels, order, gpsig::launch_seq_bwd, ov, od, iv, id,
+                   no, ni, ct, g_out, g_in, gscratch, n_out, L_out, n_in,
+                   L_in, d2, base, difference, symmetric, swap, G, cpl, nc,
+                   n_ranges, ws_mode, static_cast<cudaStream_t>(stream))
 }

@@ -89,8 +89,9 @@ constexpr long long kSmemMax = 227 * 1024;  // a block's, on the H100
 // CPL: inner steps a lane; REG: inner rows in registers (d2 <= kRegD2);
 // GC: the group width G as a compile-time constant (the plans of the main
 // path: 2 for short inner sequences, 32 for long ones), or 0 for any G, so
-// that a row's scans unroll into straight-line code.
-template <int M, int CPL, bool REG, int GC, bool M12>
+// that a row's scans unroll into straight-line code; ORD: the order
+// (common.cuh::grid_row past 1).
+template <int M, int ORD, int CPL, bool REG, int GC, bool M12>
 __global__ void __launch_bounds__(kSeqThreads)
 seq_fwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
                const float* __restrict__ iv, const float* __restrict__ id,
@@ -101,6 +102,9 @@ seq_fwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
                int orng, int bpr, int rc, int carry_smem, int o_smem,
                int in_smem) {
   constexpr int MC = M > 1 ? M - 1 : 1;
+  constexpr int NS = grid_ns<M, ORD>();  // scans a row (M - 1 at order 1)
+  constexpr int NC = ORD > 1 ? grid_nc<M, ORD>() : 1;
+  constexpr int NT = ORD > 1 ? grid_nt<M, ORD>() : 1;
   const int G = GC > 0 ? GC : G_rt;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -121,20 +125,21 @@ seq_fwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
   const int xs = REG ? kRegD2 : (d2 + 3) & ~3;  // channels of a staged row
 
   // shared memory: outer rows [rc][2][xs] (o_smem), then, with chunks, the
-  // row carries where they fit ([kWarps][2][To][M-1][P]), then (not REG,
+  // row carries where they fit ([kWarps][2][To][NS][P]), then (not REG,
   // in_smem) the inner rows [kWarps][2][d2][32].  One chunk has no carries
   // and the launcher sizes no room for them.
   float* s_o = smem;
   float* s_c = s_o + (o_smem ? rc * 2 * xs : 0);
-  const size_t carry_warp = 2 * static_cast<size_t>(To) * (M - 1) * P;
+  const size_t carry_warp = 2 * static_cast<size_t>(To) * NS * P;
   float* carry = (carry_smem ? s_c : gcarry +
                   static_cast<size_t>(blockIdx.x) * kWarps * carry_warp) +
                  warp * carry_warp;
   float* s_in = s_c + (chunked && carry_smem ? kWarps * carry_warp : 0) +
                 warp * 2 * d2 * 32;
-  // row carry of level k + 1 at row s, buffer `par` (chunk parity)
+  // row carry of scan k (order 1: level k + 1's) at row s, buffer `par`
+  // (chunk parity)
   auto carry_at = [&](int par, int s, int k) {
-    return ((par * To + s) * (M - 1) + k) * P + gi;
+    return ((par * To + s) * NS + k) * P + gi;
   };
   // the lane's inner rows of a chunk (zeros past the sequence), loaded once
   // for all of the block's outer sequences when the inner side is one chunk
@@ -188,10 +193,15 @@ seq_fwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
       }
       __syncwarp();  // the chunk before's carries are visible to the warp
       float C[MC][CPL];  // column sums of R_1 .. R_{M-1} over rows < s
+      float cc[NC][CPL];  // order > 1: the grid's column carries
 #pragma unroll
       for (int k = 0; k < MC; ++k)
 #pragma unroll
         for (int j = 0; j < CPL; ++j) C[k][j] = 0.f;
+#pragma unroll
+      for (int k = 0; k < NC; ++k)
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) cc[k][j] = 0.f;
 
       for (int s0 = 0; s0 < To; s0 += rc) {
         const int rn = min(rc, To - s0);
@@ -260,16 +270,15 @@ seq_fwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
                                                        dxx[j], base, diff,
                                                        nos, nin[j])
                              : 0.f;
-          // P(R_{k+1})[s, .] for k = 0 .. M-2: in-lane prefix, one group
-          // scan of the lane totals, the row carry of the chunks before
-          float Pv[MC][CPL];
-#pragma unroll
-          for (int k = 0; k < M - 1; ++k) {
+          // exclusive prefix y of x along the inner steps at this row:
+          // in-lane prefix, one group scan of the lane totals, the row
+          // carry of the chunks before (scan `slot`'s own)
+          auto scan = [&](const float (&x)[CPL], float (&y)[CPL], int slot) {
             float run = 0.f;
 #pragma unroll
             for (int j = 0; j < CPL; ++j) {
-              Pv[k][j] = run;
-              run += C[k][j];
+              y[j] = run;
+              run += x[j];
             }
             float incl = run;
 #pragma unroll
@@ -281,24 +290,52 @@ seq_fwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
             float base_s = __shfl_up_sync(0xffffffffu, incl, 1, G);
             base_s = lg == 0 ? 0.f : base_s;
             if (chunked) {
-              const float y = ch > 0 ? carry[carry_at(ch & 1, s, k)] : 0.f;
-              base_s += y;
+              const float y0 = ch > 0 ? carry[carry_at(ch & 1, s, slot)] : 0.f;
+              base_s += y0;
               const float tot = __shfl_sync(0xffffffffu, incl, G - 1, G);
               if (ch + 1 < nc && lg == 0)
-                carry[carry_at((ch + 1) & 1, s, k)] = y + tot;
+                carry[carry_at((ch + 1) & 1, s, slot)] = y0 + tot;
             }
 #pragma unroll
-            for (int j = 0; j < CPL; ++j) Pv[k][j] += base_s;
-          }
+            for (int j = 0; j < CPL; ++j) y[j] += base_s;
+          };
+          if constexpr (ORD > 1) {
+            // the grid at this row, then its level sums and column carries
+            float coef[NT][CPL];
+            grid_row<M, ORD, CPL>(Mv, cc, scan, coef);
 #pragma unroll
-          for (int j = 0; j < CPL; ++j) {
-            acc[1] += Mv[j];
-            if (M > 1) C[0][j] += Mv[j];
+            for (int j = 0; j < CPL; ++j) {
+              acc[1] += Mv[j];
+              cc[0][j] += Mv[j];
 #pragma unroll
-            for (int m = 2; m <= M; ++m) {
-              const float r = Mv[j] * Pv[m - 2][j];
-              acc[m] += r;
-              if (m < M) C[m - 1][j] += r;
+              for (int i = 2; i <= M; ++i) {
+                const int d = grid_d<ORD>(i);
+#pragma unroll
+                for (int a = 0; a < ORD; ++a)
+#pragma unroll
+                  for (int b = 0; b < ORD; ++b)
+                    if (a < d && b < d) {
+                      const float r = Mv[j] * coef[grid_tile<ORD>(i, a, b)][j];
+                      acc[i] += r;
+                      if (i < M) cc[grid_cc_at<ORD>(i, b)][j] += r;
+                    }
+              }
+            }
+          } else {
+            // P(R_{k+1})[s, .] for k = 0 .. M-2
+            float Pv[MC][CPL];
+#pragma unroll
+            for (int k = 0; k < M - 1; ++k) scan(C[k], Pv[k], k);
+#pragma unroll
+            for (int j = 0; j < CPL; ++j) {
+              acc[1] += Mv[j];
+              if (M > 1) C[0][j] += Mv[j];
+#pragma unroll
+              for (int m = 2; m <= M; ++m) {
+                const float r = Mv[j] * Pv[m - 2][j];
+                acc[m] += r;
+                if (m < M) C[m - 1][j] += r;
+              }
             }
           }
         }
@@ -323,7 +360,7 @@ seq_fwd_kernel(const float* __restrict__ ov, const float* __restrict__ od,
   }
 }
 
-template <int M, int CPL, bool REG, int GC, bool M12>
+template <int M, int ORD, int CPL, bool REG, int GC, bool M12>
 cudaError_t launch_seq_fwd_tiles(const float* ov, const float* od,
                                  const float* iv, const float* id,
                                  const float* no, const float* ni, float* out,
@@ -341,8 +378,9 @@ cudaError_t launch_seq_fwd_tiles(const float* ov, const float* od,
   rc = rc < To ? rc : To;
   rc = rc > 1 ? rc : 1;
   if (!o_smem) rc = To > 1 ? To : 1;
-  const long long carry_block = nc > 1 ? 2LL * kWarps * To * (M - 1) *
-                                             (32 / G) * sizeof(float)
+  const long long carry_block = nc > 1 ? 2LL * kWarps * To *
+                                             grid_ns<M, ORD>() * (32 / G) *
+                                             sizeof(float)
                                        : 0;
   const int carry_smem = carry_block <= kCarryBytes ? 1 : 0;
   if (!carry_smem && gcarry == nullptr) return cudaErrorInvalidValue;
@@ -357,7 +395,7 @@ cudaError_t launch_seq_fwd_tiles(const float* ov, const float* od,
   smem += in_smem ? in_bytes : 0;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        seq_fwd_kernel<M, CPL, REG, GC, M12>,
+        seq_fwd_kernel<M, ORD, CPL, REG, GC, M12>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
@@ -366,9 +404,10 @@ cudaError_t launch_seq_fwd_tiles(const float* ov, const float* od,
   const long long blocks =
       static_cast<long long>((n_out + orng - 1) / orng) * bpr;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  seq_fwd_kernel<M, CPL, REG, GC, M12><<<static_cast<unsigned>(blocks),
-                                         kSeqThreads,
-                                         static_cast<size_t>(smem), stream>>>(
+  seq_fwd_kernel<M, ORD, CPL, REG, GC, M12><<<static_cast<unsigned>(blocks),
+                                              kSeqThreads,
+                                              static_cast<size_t>(smem),
+                                              stream>>>(
       ov, od, iv, id, no, ni, out, gcarry, n_out, L_out, n_in, L_in, d2, base,
       difference, symmetric, swap, G, nc, orng, bpr, rc, carry_smem, o_smem,
       in_smem);
@@ -376,9 +415,12 @@ cudaError_t launch_seq_fwd_tiles(const float* ov, const float* od,
 }
 
 // d2 <= 16: inner rows in registers, one or two steps a lane, with the
-// group widths of the main path's plans compiled in; wider rows: one step
-// a lane, its row in shared memory where it fits, else read through L1.
-template <int M, bool M12>
+// group widths of the main path's plans compiled in (not at an order past
+// 1 with more than kMaxLevels levels: that library's grid unrolls far, and
+// its build would set the smoke run's; it holds the general instances);
+// wider rows: one step a lane, its row in shared memory where it fits,
+// else read through L1.
+template <int M, int ORD, bool M12>
 cudaError_t launch_seq_fwd_base(const float* ov, const float* od,
                                 const float* iv, const float* id,
                                 const float* no, const float* ni, float* out,
@@ -387,11 +429,13 @@ cudaError_t launch_seq_fwd_base(const float* ov, const float* od,
                                 int symmetric, int swap, int G, int cpl,
                                 int nc, int orng, cudaStream_t stream) {
 #define GPSIG_SEQ_FWD(CPL, REG, GC)                                          \
-  return launch_seq_fwd_tiles<M, CPL, REG, GC, M12>(                         \
+  return launch_seq_fwd_tiles<M, ORD, CPL, REG, GC, M12>(                    \
       ov, od, iv, id, no, ni, out, gcarry, n_out, L_out, n_in, L_in, d2,     \
       base, difference, symmetric, swap, G, nc, orng, stream)
-  if (d2 <= kRegD2 && cpl == 2 && G == 2) GPSIG_SEQ_FWD(2, true, 2);
-  if (d2 <= kRegD2 && cpl == 2 && G == 32) GPSIG_SEQ_FWD(2, true, 32);
+  if constexpr (ORD == 1 || M <= kMaxLevels) {  // see above
+    if (d2 <= kRegD2 && cpl == 2 && G == 2) GPSIG_SEQ_FWD(2, true, 2);
+    if (d2 <= kRegD2 && cpl == 2 && G == 32) GPSIG_SEQ_FWD(2, true, 32);
+  }
   if (d2 <= kRegD2 && cpl == 2) GPSIG_SEQ_FWD(2, true, 0);
   if (d2 <= kRegD2 && cpl == 1) GPSIG_SEQ_FWD(1, true, 0);
   if (cpl == 1) GPSIG_SEQ_FWD(1, false, 0);
@@ -399,15 +443,15 @@ cudaError_t launch_seq_fwd_base(const float* ov, const float* od,
   return cudaErrorInvalidValue;
 }
 
-template <int M>
+template <int M, int ORD = 1>
 cudaError_t launch_seq_fwd(const float* ov, const float* od, const float* iv,
                            const float* id, const float* no, const float* ni,
                            float* out, float* gcarry, int n_out, int L_out,
                            int n_in, int L_in, int d2, int base,
                            int difference, int symmetric, int swap, int G,
                            int cpl, int nc, int orng, cudaStream_t stream) {
-  return (base == kMatern12 ? launch_seq_fwd_base<M, true>
-                            : launch_seq_fwd_base<M, false>)(
+  return (base == kMatern12 ? launch_seq_fwd_base<M, ORD, true>
+                            : launch_seq_fwd_base<M, ORD, false>)(
       ov, od, iv, id, no, ni, out, gcarry, n_out, L_out, n_in, L_in, d2,
       base, difference, symmetric, swap, G, cpl, nc, orng, stream);
 }
@@ -416,12 +460,15 @@ cudaError_t launch_seq_fwd(const float* ov, const float* od, const float* iv,
 }  // namespace gpsig
 
 // gcarry: the row carries past kCarryBytes a block, (blocks, 4 warps, 2, To,
-// M-1, 32 / G) floats; may be null otherwise.
+// scans a row (common.cuh::grid_ns), 32 / G) floats; may be null otherwise.
+// order: the main library holds order 1, one built with -DGPSIG_ORDER
+// that order alone (GPSIG_SWITCH_SEQ).
 extern "C" int gpsig_seq_fwd(const float* ov, const float* od,
                              const float* iv, const float* id,
                              const float* no, const float* ni, float* out,
                              float* gcarry, int n_out, int L_out, int n_in,
-                             int L_in, int d2, int num_levels, int base,
+                             int L_in, int d2, int num_levels, int order,
+                             int base,
                              int difference, int symmetric, int swap, int G,
                              int cpl, int nc, int orng, void* stream) {
   const bool pow2 = G > 0 && (G & (G - 1)) == 0;
@@ -432,11 +479,10 @@ extern "C" int gpsig_seq_fwd(const float* ov, const float* od,
       (symmetric && (n_out != n_in || L_out != L_in || swap)) ||
       !gpsig::base_ok(base, no, ni))
     return static_cast<int>(cudaErrorInvalidValue);
-  GPSIG_SWITCH_LEVELS(num_levels, gpsig::launch_seq_fwd, ov, od, iv, id, no,
-                      ni, out, gcarry, n_out, L_out, n_in, L_in, d2, base,
-                      difference,
-                      symmetric, swap, G, cpl, nc, orng,
-                      static_cast<cudaStream_t>(stream))
+  GPSIG_SWITCH_SEQ(num_levels, order, gpsig::launch_seq_fwd, ov, od, iv, id,
+                   no, ni, out, gcarry, n_out, L_out, n_in, L_in, d2, base,
+                   difference, symmetric, swap, G, cpl, nc, orng,
+                   static_cast<cudaStream_t>(stream))
 }
 
 // Test hook, not a kernel of any path: for args[i] = (a00, d01, d10, dxx)

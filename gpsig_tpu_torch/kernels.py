@@ -30,9 +30,18 @@ reference graph, as the JAX package does.  The Kxx-diagonal leg keeps
 JAX's ``_closed_form_fns`` dispatch: cancellation-free closed forms at
 f32, the naive graph at f64 or under ``'off'``.
 
-Outside the port so far -- ``order > 1``, low-rank features, ``K_blocked``
-and the public ``K_tens`` / ``K_tens_vs_seq`` -- the module raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+``order > 1`` (the reference's discretization; at ``order >= num_levels``
+the full grid) runs the seq x seq Grams through K5/K6 at that order and
+the Kxx diagonal through ``gram.higher_order_levels_batched``.  Kzx of
+inducing tensors has no kernel past order 1, in JAX as here: ``'on'``
+raises, otherwise it takes the closed-form slot Grams and
+``gram.tens_vs_seq_levels_mxu`` at f32, the reference graph else
+(``gpsig_tpu/kernels.py:468-538``).  Kzz of inducing tensors does not
+depend on the order and keeps K1/K2.
+
+Outside the port so far -- low-rank features, ``K_blocked`` and the public
+``K_tens`` / ``K_tens_vs_seq`` -- the module raises ``NotImplementedError``
+naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -85,9 +94,6 @@ class SignatureKernel(nn.Module):
         self.order = (self.num_levels
                       if (order <= 0 or order >= self.num_levels)
                       else int(order))
-        if self.order != 1:
-            raise NotImplementedError(
-                "order > 1 is not ported yet: ROADMAP Queue 1, item 6")
         if num_lags is None:
             self.num_lags = 0
         elif isinstance(num_lags, (int, np.integer)) and num_lags >= 0:
@@ -217,15 +223,23 @@ class SignatureKernel(nn.Module):
             )
         return True
 
+    def _levels_of(self, M):
+        """The reference recursion at this kernel's order on a base Gram."""
+        if self.order == 1:
+            return sig_ops.signature_kern_first_order(
+                M, self.num_levels, difference=self.difference)
+        return sig_ops.signature_kern_higher_order(
+            M, self.num_levels, order=self.order, difference=self.difference)
+
     def _K_seq(self, cp: dict, X, X2=None):
         """(M+1, N1, N2) unnormalized per-level kernels; exactly symmetric
         when X2 is None.  With ``difference`` and the kernel route, K5/K6
-        (``signature_cuda``); else the reference graph on the full base
-        Gram (``gpsig_tpu/kernels.py:306-318``)."""
+        (``signature_cuda``) at this order; else the reference graph on the
+        full base Gram (``gpsig_tpu/kernels.py:306-321``)."""
         if self.difference and self._kernel_route(X):
             return sc.fused_first_order_levels(
                 X, X2, num_levels=self.num_levels, base=self.base,
-                difference=True)
+                difference=True, order=self.order)
         kern = self._base_kern(cp)
         N1, L1, d = X.shape
         if X2 is None:
@@ -234,8 +248,7 @@ class SignatureKernel(nn.Module):
             N2, L2, _ = X2.shape
             M = kern(X.reshape(N1 * L1, d),
                      X2.reshape(N2 * L2, d)).reshape(N1, L1, N2, L2)
-        return sig_ops.signature_kern_first_order(
-            M, self.num_levels, difference=self.difference)
+        return self._levels_of(M)
 
     def _K_seq_diag(self, cp: dict, X):
         """(M+1, N) unnormalized per-level diagonals."""
@@ -243,13 +256,15 @@ class SignatureKernel(nn.Module):
             _, inc_diag = self._closed_form_fns(X.dtype)
             if inc_diag is not None:
                 G = inc_diag(X)  # (N, L-1, L-1), pre-differenced
-                lvls = gram.first_order_levels_batched(
-                    G, self.num_levels, difference=False)
+                if self.order == 1:
+                    lvls = gram.first_order_levels_batched(
+                        G, self.num_levels, difference=False)
+                else:
+                    lvls = gram.higher_order_levels_batched(
+                        G, self.num_levels, self.order, difference=False)
                 lvls[1] = gram.level1_exact_diag(inc_diag, X)
                 return lvls
-        M = self._base_kern(cp)(X)  # (N, L, L)
-        return sig_ops.signature_kern_first_order(
-            M, self.num_levels, difference=self.difference)
+        return self._levels_of(self._base_kern(cp)(X))  # (N, L, L) Grams
 
     def _K_tens(self, cp: dict, Z, increments: bool):
         if self._kernel_route(Z):
@@ -268,10 +283,26 @@ class SignatureKernel(nn.Module):
 
     def _K_tens_vs_seq(self, cp: dict, Z, X, increments: bool):
         if self._kernel_route(Z):
-            return ic.fused_tens_vs_seq_levels(
-                Z, X, num_levels=self.num_levels, base=self.base,
-                increments=increments, difference=self.difference,
-                fast_math=self.fast_math)
+            if self.order == 1:
+                return ic.fused_tens_vs_seq_levels(
+                    Z, X, num_levels=self.num_levels, base=self.base,
+                    increments=increments, difference=self.difference,
+                    fast_math=self.fast_math)
+            # the Kzx kernel is order-1 only, as JAX's fused one is: no
+            # silent detour under 'on'
+            if self.fused == "on":
+                raise ValueError(
+                    "fused='on' but the fused Kzx kernel supports order=1 "
+                    f"only (this kernel has order={self.order}); use "
+                    "fused='auto' to compute it with torch ops")
+        if increments and self.difference:
+            # closed-form slot Grams of the 2-point slot paths, then the
+            # time recursion as triangular matmuls (any order)
+            inc_cross, _ = self._closed_form_fns(X.dtype)
+            if inc_cross is not None:
+                M = gram.tens_vs_seq_slot_grams(inc_cross, Z, X)
+                return gram.tens_vs_seq_levels_mxu(M, self.num_levels,
+                                                   order=self.order)
         kern = self._base_kern(cp)
         lt, n_Z, d = Z.shape[0], Z.shape[1], Z.shape[-1]
         N, L, _ = X.shape
@@ -282,8 +313,11 @@ class SignatureKernel(nn.Module):
             M = M[:, :, 1] - M[:, :, 0]
         else:
             M = kern(Z.reshape(lt * n_Z, d), X_flat).reshape(lt, n_Z, N, L)
-        return sig_ops.signature_kern_tens_vs_seq_first_order(
-            M, self.num_levels, difference=self.difference)
+        if self.order == 1:
+            return sig_ops.signature_kern_tens_vs_seq_first_order(
+                M, self.num_levels, difference=self.difference)
+        return sig_ops.signature_kern_tens_vs_seq_higher_order(
+            M, self.num_levels, order=self.order, difference=self.difference)
 
     def _level_scale(self, cp: dict, K_lvls):
         w = (cp["sigma"] * cp["variances"]).to(K_lvls.dtype)

@@ -13,7 +13,13 @@ The main library holds each kernel's instances for 1 to ``MAIN_LEVELS``
 signature levels.  A call with more levels loads, at its first use, a
 second library built from the same sources with
 ``-DGPSIG_EXTRA_LEVELS=M``: one instance of each kernel for that M alone,
-in ``build/kernels/<hash>-m<M>/``, loaded once per M per process.
+in ``build/kernels/<hash>-m<M>/``, loaded once per M per process.  The
+seq x seq kernels K5 and K6 at an order k > 1 (the signature's
+discretization, its (k x k) grid) come from a library of their own, built
+at first use from ``seq_fwd.cu`` and ``seq_bwd.cu`` alone with
+``-DGPSIG_ORDER=k -DGPSIG_ORDER_LEVELS=M`` into
+``build/kernels/<hash>-m<M>-o<k>/``: the main library's instances are not
+multiplied by the order.
 
 No ``--use_fast_math``: it would turn ``expf`` into ``__expf`` and lose the
 accuracy the slot-Gram algebra needs (``csrc/common.cuh``).
@@ -34,6 +40,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SOURCES = ("kzz_fwd.cu", "kzz_bwd.cu", "kzx_fwd.cu", "kzx_bwd.cu",
             "seq_fwd.cu", "seq_bwd.cu")
+_SEQ_SOURCES = ("seq_fwd.cu", "seq_bwd.cu")  # an order library's
 _HEADERS = ("common.cuh",)
 MAIN_LEVELS = 8  # csrc/common.cuh::kMaxLevels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -57,13 +64,13 @@ _SIGNATURES = {
     # num_levels, base, increments, difference, t_chunk, stage_rows, stream
     "gpsig_kzx_bwd": [_P] * 10 + [_I] * 11 + [_P],
     # ov, od, iv, id, no, ni, out, carry, n_out, L_out, n_in, L_in, d2,
-    # num_levels, base, difference, symmetric, swap, group, cpl, chunks,
-    # outer range, stream
-    "gpsig_seq_fwd": [_P] * 8 + [_I] * 14 + [_P],
+    # num_levels, order, base, difference, symmetric, swap, group, cpl,
+    # chunks, outer range, stream
+    "gpsig_seq_fwd": [_P] * 8 + [_I] * 15 + [_P],
     # ov, od, iv, id, no, ni, ct, g_out, g_in, scratch, n_out, L_out, n_in,
-    # L_in, d2, num_levels, base, difference, symmetric, swap, group, cpl,
-    # chunks, ranges, workspace mode, stream
-    "gpsig_seq_bwd": [_P] * 10 + [_I] * 15 + [_P],
+    # L_in, d2, num_levels, order, base, difference, symmetric, swap, group,
+    # cpl, chunks, ranges, workspace mode, stream
+    "gpsig_seq_bwd": [_P] * 10 + [_I] * 16 + [_P],
     # args (n, 4), out (n, 4), n, stream: a test hook of common.cuh's expm1
     "gpsig_expm1_probe": [_P] * 2 + [_I] + [_P],
     # args (n, 8), out (n, 9), n, stream: a test hook of its matern12
@@ -92,10 +99,21 @@ def _nvcc() -> str:
     )
 
 
-def _flags(num_levels: int) -> tuple[str, ...]:
+def _flags(num_levels: int, order: int = 1) -> tuple[str, ...]:
+    if order > 1:
+        return NVCC_FLAGS + (f"-DGPSIG_ORDER={order}",
+                             f"-DGPSIG_ORDER_LEVELS={num_levels}")
     if num_levels <= MAIN_LEVELS:
         return NVCC_FLAGS
     return NVCC_FLAGS + (f"-DGPSIG_EXTRA_LEVELS={num_levels}",)
+
+
+def _tag(num_levels: int, order: int = 1) -> str:
+    """The library's directory under ``build/kernels/``."""
+    tag = _digest(_flags(num_levels, order))
+    if order > 1:
+        return tag + f"-m{num_levels}-o{order}"
+    return tag + (f"-m{num_levels}" if num_levels > MAIN_LEVELS else "")
 
 
 def _digest(flags=NVCC_FLAGS) -> str:
@@ -124,24 +142,23 @@ def _run(cmds) -> str:
     return "".join(outputs)
 
 
-def build(num_levels: int = 1) -> tuple[Path, str]:
-    """Compile the library that holds ``num_levels`` (the main one up to
-    ``MAIN_LEVELS``, else the one for that level count) unless this source
-    hash is built already.  Returns (library path, ptxas report)."""
-    flags = _flags(num_levels)
-    tag = _digest(flags)
-    if num_levels > MAIN_LEVELS:
-        tag += f"-m{num_levels}"
-    out_dir = _BUILD_ROOT / tag
+def build(num_levels: int = 1, order: int = 1) -> tuple[Path, str]:
+    """Compile the library that holds ``num_levels`` at ``order`` (the
+    main one up to ``MAIN_LEVELS`` at order 1, else the one for that level
+    count, or K5/K6 alone for that order) unless this source hash is built
+    already.  Returns (library path, ptxas report)."""
+    flags = _flags(num_levels, order)
+    sources = _SEQ_SOURCES if order > 1 else _SOURCES
+    out_dir = _BUILD_ROOT / _tag(num_levels, order)
     lib_path = out_dir / "libgpsig_kernels.so"
     report_path = out_dir / "ptxas.txt"
     if lib_path.exists() and report_path.exists():
         return lib_path, report_path.read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), os.getpid()
-    objs = [out_dir / f"{Path(src).stem}.{tag}.o" for src in _SOURCES]
+    objs = [out_dir / f"{Path(src).stem}.{tag}.o" for src in sources]
     report = _run([[nvcc, *flags, "-c", "-o", str(obj), str(_CSRC / src)]
-                   for src, obj in zip(_SOURCES, objs)])
+                   for src, obj in zip(sources, objs)])
     tmp = out_dir / f"libgpsig_kernels.{tag}.so"
     _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     report_path.write_text(report)
@@ -149,18 +166,23 @@ def build(num_levels: int = 1) -> tuple[Path, str]:
     return lib_path, report
 
 
-def load(num_levels: int = 1) -> KernelLibrary:
+def load(num_levels: int = 1, order: int = 1) -> KernelLibrary:
     """Build (if needed) and load, once per process, the library that
-    holds ``num_levels``: the main one for up to ``MAIN_LEVELS``, else the
-    one built for that level count."""
-    return _load(num_levels if num_levels > MAIN_LEVELS else 1)
+    holds ``num_levels`` at ``order``: the main one for up to
+    ``MAIN_LEVELS`` at order 1, else the one built for that level count,
+    or for that level count and order."""
+    if order > 1:
+        return _load(num_levels, order)
+    return _load(num_levels if num_levels > MAIN_LEVELS else 1, 1)
 
 
 @functools.lru_cache(maxsize=None)
-def _load(num_levels: int) -> KernelLibrary:
-    path, report = build(num_levels)
+def _load(num_levels: int, order: int) -> KernelLibrary:
+    path, report = build(num_levels, order)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
+        if order > 1 and not name.startswith("gpsig_seq_"):
+            continue  # an order library holds K5 and K6 alone
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -3,7 +3,10 @@
 The subset of ``gpsig_tpu/ops/gram.py`` that the port runs: the f32
 Kxx-diagonal leg (closed-form rbf/linear/matern12 increment Grams, the
 level recursion with exclusive cumsums as triangular-ones matmuls, the
-telescoped exact level 1 of a diagonal and of a cross Gram), the accurate
+telescoped exact level 1 of a diagonal and of a cross Gram), the
+higher-order (order > 1) level grid on batched Grams and the
+tensor-vs-sequence levels from closed-form slot Grams (the order > 1 Kzx,
+which has no kernel), the accurate
 f32 ``exp``/``expm1`` that the plain versions of the kernels use, and the
 dots-level matern12 closed forms with their explicit partials, the same
 formulas as ``csrc/common.cuh``'s.
@@ -15,6 +18,8 @@ none: ``config.py`` keeps every f32 matmul in full f32.
 from __future__ import annotations
 
 import torch
+
+from .signature import grid_next
 
 _LN2 = 0.6931471805599453
 _LN2_HI = 0.693359375  # exact in f32 (10 significant bits)
@@ -451,4 +456,63 @@ def first_order_levels_batched(M, num_levels: int, *,
     for _ in range(2, num_levels + 1):
         R = M * torch.matmul(torch.matmul(A1, R), A2.T)
         K.append(torch.sum(R, dim=(-2, -1)).reshape(batch_shape))
+    return torch.stack(K, dim=0)
+
+
+def higher_order_levels_batched(M, num_levels: int, order: int, *,
+                                difference: bool = True):
+    """Higher-order level stack for a batch of ``(..., L1, L2)`` Grams: the
+    (order x order) grid of ``signature.signature_kern_higher_order``, with
+    the exclusive cumsums as triangular-ones matmuls.
+    Returns ``(num_levels+1, ...)``."""
+    if difference:
+        M = (M[..., 1:, 1:] + M[..., :-1, :-1]
+             - M[..., :-1, 1:] - M[..., 1:, :-1])
+    L1, L2 = M.shape[-2], M.shape[-1]
+    A1 = _tri_ones(L1, M.dtype, M.device)
+    A2 = _tri_ones(L2, M.dtype, M.device)
+    batch_shape = M.shape[:-2]
+    M = M.reshape((-1, L1, L2))
+    K = [torch.ones(batch_shape, dtype=M.dtype, device=M.device),
+         torch.sum(M, dim=(-2, -1)).reshape(batch_shape)]
+    R = {(0, 0): M}
+    for i in range(2, num_levels + 1):
+        R = grid_next(M, R, min(i, order), lambda t: torch.matmul(A1, t),
+                      lambda t: torch.matmul(t, A2.T))
+        K.append(torch.sum(sum(R.values()), dim=(-2, -1)).reshape(
+            batch_shape))
+    return torch.stack(K, dim=0)
+
+
+def tens_vs_seq_slot_grams(increment_fn, Z, X):
+    """(lt, nZ, N, L-1) cancellation-free Kzx slot Grams, pre-differenced
+    over time, of incremental inducing tensors Z (lt, nZ, 2, d) against
+    sequences X (N, L, d): each slot pair is a 2-point path."""
+    lt, nZ = Z.shape[0], Z.shape[1]
+    G = increment_fn(Z.reshape(lt * nZ, 2, Z.shape[-1]), X)
+    return G[:, :, 0, :].reshape(lt, nZ, X.shape[0], X.shape[1] - 1)
+
+
+def tens_vs_seq_levels_mxu(M, num_levels: int, order: int = 1):
+    """(M+1, nZ, N) tensor-vs-sequence level kernels from pre-differenced
+    slot Grams M (lt, nZ, N, Lm): ``signature_kern_tens_vs_seq_*`` with
+    ``difference=False``, the exclusive time cumsum a strictly-triangular
+    ones matmul (``gpsig_tpu/ops/gram.py:1139``)."""
+    A = _tri_ones(M.shape[-1], M.dtype, M.device).T
+
+    def cum(R):
+        return torch.matmul(R, A)
+
+    K = [torch.ones(M.shape[1:3], dtype=M.dtype, device=M.device)]
+    k = 0
+    for i in range(1, num_levels + 1):
+        R = [M[k]]
+        k += 1
+        for j in range(1, i):
+            R_next = [M[k] * cum(sum(R))]
+            for l in range(1, min(j + 1, order)):
+                R_next.append((1.0 / (l + 1)) * M[k] * R[l - 1])
+            R = R_next
+            k += 1
+        K.append(torch.sum(sum(R), dim=-1))
     return torch.stack(K, dim=0)

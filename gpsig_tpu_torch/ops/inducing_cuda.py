@@ -171,11 +171,12 @@ def _check_cuda(name: str, *tensors):
             )
 
 
-def _launch(fn_name: str, num_levels: int, *args):
-    """Call ``fn_name`` of the library that holds ``num_levels``."""
+def _launch(fn_name: str, num_levels: int, *args, order: int = 1):
+    """Call ``fn_name`` of the library that holds ``num_levels`` (and, for
+    K5 and K6, ``order``)."""
     from . import _cuda_build
 
-    rc = getattr(_cuda_build.load(num_levels).lib, fn_name)(*args)
+    rc = getattr(_cuda_build.load(num_levels, order).lib, fn_name)(*args)
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed to launch: cudaError {rc}")
 

@@ -1,5 +1,5 @@
-"""First-order signature Grams between sets of sequences through
-hand-written CUDA kernels.
+"""Signature Grams between sets of sequences through hand-written CUDA
+kernels, at order 1 and at any higher order.
 
 The port of ``gpsig_tpu/ops/signature_pallas.py``, forward and backward:
 
@@ -40,9 +40,17 @@ backward masks the cotangent of an increment entry whose step on either
 side is zero, as ``_kernel_bwd`` does (``signature_pallas.py:991-1017``):
 there the forward is exactly 0, so the mask is exact for repeat padding
 and the lengthscales, and at a genuinely repeated observation of an
-inducing sequence it keeps the JAX package's gradient.  Not ported here:
-``order > 1`` (ROADMAP Queue 1, item 6), which raises
-``NotImplementedError``.
+inducing sequence it keeps the JAX package's gradient.
+
+At ``order`` k > 1 (clamped to the level count, as ``SignatureKernel``
+does) each level is an (k x k) grid of partial tensors with 1/j, 1/(jk)
+weights (``_pair_levels_fwd`` / ``_pair_levels_bwd``,
+``signature_pallas.py:286-419``; ``csrc/common.cuh::grid_row``): the
+kernels carry up to k column sums a level and take up to k scans a row,
+and K6's reverse adds the three adjoints of the grid (the double suffix,
+the column suffix Tbar, the in-row suffix Ubar) and the pointwise one.
+K5 and K6 at an order past 1 come from a library built for that level
+count and order (``_cuda_build.load(num_levels, order)``).
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from torch.autograd.function import once_differentiable
 
 from . import gram
 from . import inducing_cuda as ic
+from . import signature as sig_ops
 
 _THREADS = 128  # csrc/common.cuh::kSeqThreads
 _WARPS = _THREADS // 32
@@ -76,11 +85,20 @@ _K6_CHUNK = 4 * 32
 _K6_SCRATCH = 2 << 30
 
 
-def _check_config(num_levels: int, base: str, order: int = 1):
-    if order != 1:
-        raise NotImplementedError(
-            "order > 1 in the seq x seq kernels is not ported yet: ROADMAP "
-            "Queue 1, item 6")
+def _order(order: int, num_levels: int) -> int:
+    """The grid's order: ``order`` clamped to the level count (order <= 0
+    or >= num_levels: the full grid), as ``SignatureKernel`` clamps it."""
+    return num_levels if order <= 0 or order >= num_levels else int(order)
+
+
+def _grid_counts(num_levels: int, order: int) -> tuple[int, int]:
+    """(column sums a row stores, scans a row) of K5/K6 at ``order``: M - 1
+    each at order 1 (csrc/common.cuh grid_nc, grid_ns)."""
+    d = [min(i, order) for i in range(num_levels + 1)]
+    return sum(d[1:num_levels]), sum(d[2:])
+
+
+def _check_config(num_levels: int, base: str):
     if base not in ic.SUPPORTED_BASES:
         raise ValueError(f"base {base!r} has no seq x seq kernel; supported:"
                          f" {ic.SUPPORTED_BASES}")
@@ -123,13 +141,31 @@ def _prefix(R, A1, A2):
     return torch.matmul(torch.matmul(A1, R), A2.T)
 
 
-def _levels(M, num_levels: int):
-    """(M+1, ...) level sums of (..., T1, T2) increment Grams:
-    R_1 = M, R_m = M * P(R_{m-1}) by triangular-ones matmuls."""
-    A1 = gram._tri_ones(M.shape[-2], M.dtype, M.device)
-    A2 = gram._tri_ones(M.shape[-1], M.dtype, M.device)
+def _cum_rows(t):
+    return sig_ops.cumsum_exclusive(t, dim=-2)
+
+
+def _cum_cols(t):
+    return sig_ops.cumsum_exclusive(t, dim=-1)
+
+
+def _levels(M, num_levels: int, order: int = 1):
+    """(M+1, ...) level sums of (..., T1, T2) increment Grams: R_1 = M,
+    R_m = M * P(R_{m-1}) by triangular-ones matmuls; at order > 1 the
+    (order x order) tile grid (``_pair_levels_fwd``, ``signature.grid_next``)
+    with the rows (the first argument's steps) on ``cum_rows``, its
+    one-axis prefixes as exclusive cumsums (O(T) a row, where a matmul is
+    O(T^2): the grid takes up to 8 of them a level)."""
     K = [torch.ones(M.shape[:-2], dtype=M.dtype, device=M.device),
          torch.sum(M, dim=(-2, -1))]
+    if order > 1:
+        R = {(0, 0): M}
+        for i in range(2, num_levels + 1):
+            R = sig_ops.grid_next(M, R, min(i, order), _cum_rows, _cum_cols)
+            K.append(torch.sum(sum(R.values()), dim=(-2, -1)))
+        return torch.stack(K)
+    A1 = gram._tri_ones(M.shape[-2], M.dtype, M.device)
+    A2 = gram._tri_ones(M.shape[-1], M.dtype, M.device)
     R = M
     for _ in range(2, num_levels + 1):
         R = M * _prefix(R, A1, A2)
@@ -137,13 +173,75 @@ def _levels(M, num_levels: int):
     return torch.stack(K)
 
 
-def _levels_vjp(M, ct, num_levels: int):
+def _grid_keys(level: int, order: int):
+    """The tiles (a, b) of level ``level``'s grid: a, b < min(level,
+    order) (``_grid_keys``, ``signature_pallas.py:422``)."""
+    d = min(level, order)
+    return [(a, b) for a in range(d) for b in range(d)]
+
+
+def _levels_vjp(M, ct, num_levels: int, order: int = 1):
     """Mbar of ``_levels`` under level cotangents ct (M+1, ...): the
     reverse sweep Rbar_M = g_M, Rbar_m = g_m + P^T(M * Rbar_{m+1}), Mbar =
-    Rbar_1 + sum_{m>=2} P(R_{m-1}) * Rbar_m (``_pair_levels_bwd``)."""
+    Rbar_1 + sum_{m>=2} P(R_{m-1}) * Rbar_m (``_pair_levels_bwd``).  At
+    order > 1 the grid recursion's adjoint written out, as
+    ``_pair_levels_bwd`` :378-419 has it (not autograd, so that it checks
+    K6's algebra): level i-1's grid recomputed forward, then for each tile
+    of level i its weight into Mbar and its cotangent into level i-1's
+    tiles -- the double suffix for (0, 0), the column suffix Tbar for (0,
+    j-1), the in-row reversed scan Ubar for (j-1, 0), pointwise for the
+    rest."""
+    g = ct[..., None, None]
+    if order > 1:
+        cum_rows, cum_cols = _cum_rows, _cum_cols
+
+        def rcum_rows(t):
+            return ic._rev_cumsum_exclusive(t, dim=-2)
+
+        def rcum_cols(t):
+            return ic._rev_cumsum_exclusive(t, dim=-1)
+
+        Mbar = torch.zeros_like(M)
+        Rbar = {key: g[num_levels].expand_as(M)
+                for key in _grid_keys(num_levels, order)}
+        for i in range(num_levels, 1, -1):
+            d = min(i, order)
+            Rprev = {(0, 0): M}
+            for i2 in range(2, i):
+                Rprev = sig_ops.grid_next(M, Rprev, min(i2, order),
+                                          cum_rows, cum_cols)
+            Rbar_prev = {key: g[i - 1].expand_as(M)
+                         for key in _grid_keys(i - 1, order)}
+            Mbar = Mbar + Rbar[(0, 0)] * cum_rows(cum_cols(
+                sum(Rprev.values())))
+            Sbar = rcum_rows(rcum_cols(M * Rbar[(0, 0)]))
+            for key in Rbar_prev:
+                Rbar_prev[key] = Rbar_prev[key] + Sbar
+            for j in range(2, d + 1):
+                row_keys = [(a, j - 2) for a in range(d)
+                            if (a, j - 2) in Rprev]
+                col_keys = [(j - 2, b) for b in range(d)
+                            if (j - 2, b) in Rprev]
+                row_sum = sum(Rprev[k] for k in row_keys)
+                Mbar = Mbar + (1.0 / j) * Rbar[(0, j - 1)] * cum_rows(row_sum)
+                Tbar = (1.0 / j) * rcum_rows(M * Rbar[(0, j - 1)])
+                for k in row_keys:
+                    Rbar_prev[k] = Rbar_prev[k] + Tbar
+                col_sum = sum(Rprev[k] for k in col_keys)
+                Mbar = Mbar + (1.0 / j) * Rbar[(j - 1, 0)] * cum_cols(col_sum)
+                Ubar = (1.0 / j) * rcum_cols(M * Rbar[(j - 1, 0)])
+                for k in col_keys:
+                    Rbar_prev[k] = Rbar_prev[k] + Ubar
+                for k2 in range(2, d + 1):
+                    src = (j - 2, k2 - 2)
+                    w = 1.0 / (j * k2)
+                    Mbar = Mbar + w * Rbar[(j - 1, k2 - 1)] * Rprev[src]
+                    Rbar_prev[src] = (Rbar_prev[src]
+                                      + w * M * Rbar[(j - 1, k2 - 1)])
+            Rbar = Rbar_prev
+        return Mbar + Rbar[(0, 0)]
     A1 = gram._tri_ones(M.shape[-2], M.dtype, M.device)
     A2 = gram._tri_ones(M.shape[-1], M.dtype, M.device)
-    g = ct[..., None, None]
     Cs, R = [], M
     for _ in range(2, num_levels + 1):
         C = _prefix(R, A1, A2)
@@ -168,13 +266,15 @@ def _seq_norms(Dl, Dr, base: str, difference: bool):
 
 
 def seq_fwd_plain(Vl, Dl, Vr, Dr, *, num_levels: int, base: str,
-                  difference: bool, symmetric: bool = False):
+                  difference: bool, symmetric: bool = False, order: int = 1):
     """Plain torch version of K5 on the augmented rows, lhs (N1, L1, d2)
-    and rhs (N2, L2, d2): ``(num_levels+1, N1, N2)``.  f32 uses
+    and rhs (N2, L2, d2): ``(num_levels+1, N1, N2)``, the lhs steps on the
+    grid's rows at order > 1 (``_pair_levels_fwd``).  f32 uses
     ``gram.exp_accurate`` and the Taylor ``expm1``; f64 the native ones.
     Blocked over the lhs sequences so full-width f64 stays within a few
     hundred MB."""
     _check_rows("seq_fwd_plain", Vl, Dl, Vr, Dr, symmetric)
+    order = _order(order, num_levels)
     n1, n2 = Vl.shape[0], Vr.shape[0]
     T1 = _steps(Vl.shape[1], difference)
     T2 = _steps(Vr.shape[1], difference)
@@ -190,19 +290,20 @@ def seq_fwd_plain(Vl, Dl, Vr, Dr, *, num_levels: int, base: str,
         norms = None if nl is None else (nl[a0:a1], nr)
         M = ic._zz_gram(Vl[a0:a1], Dl[a0:a1], Vr, Dr, base, difference,
                         norms, dots=_pair_dots)
-        blocks.append(_levels(M, num_levels))
+        blocks.append(_levels(M, num_levels, order))
     out = torch.cat(blocks, dim=1)
     return ic._mirror(out) if symmetric else out
 
 
 def seq_bwd_plain(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
-                  difference: bool, symmetric: bool = False):
+                  difference: bool, symmetric: bool = False, order: int = 1):
     """Plain torch version of K6: the VJP of ``seq_fwd_plain`` under the
     cotangent ct (num_levels+1, N1, N2) -> (g_vl, g_dl) (N1, L1, d2) and
     (g_vr, g_dr) (N2, L2, d2).  matern12: Mbar is masked where either
     step is zero (the module docstring), and the step-norm cotangents
     chain into g_dl and g_dr."""
     _check_rows("seq_bwd_plain", Vl, Dl, Vr, Dr, symmetric)
+    order = _order(order, num_levels)
     if symmetric:
         ct = ic._fold(ct)
     n1, n2 = Vl.shape[0], Vr.shape[0]
@@ -226,7 +327,7 @@ def seq_bwd_plain(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
         norms = None if nl is None else (nl[a0:a1], nr)
         M, P = ic._zz_partials(Vl_a, Dl_a, Vr_t, Dr_t, base, difference,
                                norms, dots=_pair_dots)
-        Mbar = _levels_vjp(M, ct[:, a0:a1], num_levels)
+        Mbar = _levels_vjp(M, ct[:, a0:a1], num_levels, order)
         if nl is not None:  # the dead-step mask
             Mbar = Mbar * ((norms[0] > 0) & (nr > 0)).to(Mbar.dtype)
         W_A, W_01, W_10, W_xx, W_nx, W_ny = (None if p is None else Mbar * p
@@ -282,7 +383,7 @@ def _k6_plan(T_in: int) -> tuple[int, int, int]:
 
 
 def seq_fwd(Vl, Dl, Vr, Dr, *, num_levels: int, base: str, difference: bool,
-            symmetric: bool = False):
+            symmetric: bool = False, order: int = 1):
     """K5 on CUDA float32 tensors; the plain version on CPU tensors.
 
     Replaces ``_kernel_fwd`` (``gpsig_tpu/ops/signature_pallas.py:436``).
@@ -294,13 +395,17 @@ def seq_fwd(Vl, Dl, Vr, Dr, *, num_levels: int, base: str, difference: bool,
     in-lane prefix plus one scan of the lane totals.  An inner sequence
     longer than a chunk of G cpl steps is taken chunk by chunk with row
     carries, so both sides take any length.  The shorter sequence goes on
-    the inner axis; G and cpl come from ``_k5_plan`` (``csrc/seq_fwd.cu``)."""
+    the inner axis; G and cpl come from ``_k5_plan`` (``csrc/seq_fwd.cu``).
+    At order > 1 the lanes carry the grid's column sums and scan each
+    level's d rows (``csrc/common.cuh::grid_row``); the level sums do not
+    depend on which side goes inner (the grid transposes with them)."""
     _check_config(num_levels, base)
     _check_rows("seq_fwd", Vl, Dl, Vr, Dr, symmetric)
+    order = _order(order, num_levels)
     if Vl.is_cpu:
         return seq_fwd_plain(Vl, Dl, Vr, Dr, num_levels=num_levels,
                              base=base, difference=difference,
-                             symmetric=symmetric)
+                             symmetric=symmetric, order=order)
     ic._check_cuda("seq_fwd", Vl, Dl, Vr, Dr)
     (n1, L1, d2), (n2, L2, _) = Vl.shape, Vr.shape
     T1, T2 = _steps(L1, difference), _steps(L2, difference)
@@ -315,7 +420,7 @@ def seq_fwd(Vl, Dl, Vr, Dr, *, num_levels: int, base: str, difference: bool,
     orng = max(1, min(_K5_OUTER_RANGE, _K5_OUTER_STEPS // max(T_out, 1)))
     # csrc/seq_fwd.cu: the row carries, in a global scratch past
     # _K5_CARRY_SMEM bytes a block
-    per_warp = 2 * T_out * (num_levels - 1) * (32 // G)
+    per_warp = 2 * T_out * _grid_counts(num_levels, order)[1] * (32 // G)
     gcarry = None
     if nc > 1 and 4 * _WARPS * per_warp > _K5_CARRY_SMEM:
         blocks = -(-n_out // orng) * -(-n_in // (_WARPS * (32 // G)))
@@ -327,9 +432,9 @@ def seq_fwd(Vl, Dl, Vr, Dr, *, num_levels: int, base: str, difference: bool,
                iv.data_ptr(), id_.data_ptr(), ic._ptr(no), ic._ptr(ni),
                out.data_ptr(),
                0 if gcarry is None else gcarry.data_ptr(), n_out, L_out,
-               n_in, L_in, d2, num_levels, ic._BASE_IDS[base],
+               n_in, L_in, d2, num_levels, order, ic._BASE_IDS[base],
                int(difference), int(symmetric), int(swap), G, cpl, nc, orng,
-               ic._stream(Vl))
+               ic._stream(Vl), order=order)
     seq_fwd.launches += 1
     return out
 
@@ -338,7 +443,7 @@ seq_fwd.launches = 0
 
 
 def seq_bwd(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
-            difference: bool, symmetric: bool = False):
+            difference: bool, symmetric: bool = False, order: int = 1):
     """K6 on CUDA float32 tensors; the plain version on CPU tensors.
 
     Replaces ``_kernel_bwd`` (``gpsig_tpu/ops/signature_pallas.py:827``).
@@ -355,16 +460,20 @@ def seq_bwd(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
     stores each row's column sums, so the reverse reads P(R) exact, never
     recovered by subtraction.  The
     per-(inner, range) and per-(outer, set) slabs are summed here with
-    ``torch.sum`` (no atomics, deterministic; ``csrc/seq_bwd.cu``)."""
+    ``torch.sum`` (no atomics, deterministic; ``csrc/seq_bwd.cu``).  At
+    order > 1 the forward stores the grid's column carries, and the reverse
+    recomputes each row's grid from them and runs its adjoint, one row at
+    a time."""
     _check_config(num_levels, base)
     _check_rows("seq_bwd", Vl, Dl, Vr, Dr, symmetric)
+    order = _order(order, num_levels)
     (n1, L1, d2), (n2, L2, _) = Vl.shape, Vr.shape
     if ct.shape != (num_levels + 1, n1, n2):
         raise ValueError(f"seq_bwd: cotangent shape {tuple(ct.shape)}")
     if Vl.is_cpu:
         return seq_bwd_plain(Vl, Dl, Vr, Dr, ct, num_levels=num_levels,
                              base=base, difference=difference,
-                             symmetric=symmetric)
+                             symmetric=symmetric, order=order)
     ic._check_cuda("seq_bwd", Vl, Dl, Vr, Dr, ct)
     T1, T2 = _steps(L1, difference), _steps(L2, difference)
     grads = [torch.zeros_like(t) for t in (Vl, Dl, Vr, Dr)]
@@ -384,8 +493,8 @@ def seq_bwd(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
     # workspace of inner rows and gradients and a store of column sums (and
     # with chunks their carries), in shared memory where a block's fit
     ws = 4 * d2 * cpl * 32 * nc  # floats
-    per = T_out * (num_levels - 1) * 32
-    cs = per * cpl * nc + (per * (nc + 1) if nc > 1 else 0)
+    n_c, n_s = _grid_counts(num_levels, order)
+    cs = T_out * 32 * (n_c * cpl * nc + (n_s * (nc + 1) if nc > 1 else 0))
     if 4 * _WARPS * (ws + cs) <= _K6_SMEM_ALL:  # bytes, a block of 4 warps
         mode, scratch = 0, 0
     elif 4 * _WARPS * ws <= _K6_SMEM_WS:
@@ -408,9 +517,9 @@ def seq_bwd(Vl, Dl, Vr, Dr, ct, *, num_levels: int, base: str,
                iv.data_ptr(), id_.data_ptr(), ic._ptr(no), ic._ptr(ni),
                ct.data_ptr(), g_out.data_ptr(),
                g_in.data_ptr(), gscratch.data_ptr(), n_out, L_out, n_in,
-               L_in, d2, num_levels, ic._BASE_IDS[base], int(difference),
-               int(symmetric), int(swap), G, cpl, nc, ranges, mode,
-               ic._stream(Vl))
+               L_in, d2, num_levels, order, ic._BASE_IDS[base],
+               int(difference), int(symmetric), int(swap), G, cpl, nc, ranges,
+               mode, ic._stream(Vl), order=order)
     seq_bwd.launches += 1
     g_out, g_in = torch.sum(g_out, dim=1), torch.sum(g_in, dim=1)
     outer, inner = ((2, 3), (0, 1)) if swap else ((0, 1), (2, 3))
@@ -467,28 +576,29 @@ def m12_probe(args):
 
 class _SeqFn(torch.autograd.Function):
     """seq x seq level stack over the augmented rows: forward K5, backward
-    K6."""
+    K6.  Options after the rows: num_levels, base, difference, symmetric
+    and, optionally, order (1 if not given)."""
 
     @staticmethod
-    def forward(ctx, Vl, Dl, Vr, Dr, num_levels, base, difference,
-                symmetric):
+    def forward(ctx, Vl, Dl, Vr, Dr, *opts):
         ctx.save_for_backward(Vl, Dl, Vr, Dr)
-        ctx.opts = dict(num_levels=num_levels, base=base,
-                        difference=difference, symmetric=symmetric)
+        ctx.opts = dict(zip(("num_levels", "base", "difference", "symmetric",
+                             "order"), opts))
         return seq_fwd(Vl, Dl, Vr, Dr, **ctx.opts)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ct):
         grads = seq_bwd(*ctx.saved_tensors, ct.contiguous(), **ctx.opts)
-        return (*grads, None, None, None, None)
+        return (*grads, *(None,) * len(ctx.opts))
 
 
 def fused_first_order_levels(X, X2=None, *, num_levels: int, base: str = "rbf",
                              difference: bool = True, order: int = 1):
-    """(num_levels+1, N1, N2) first-order signature level kernels of
-    scaled sequences X (N1, L1, d) against X2 (N2, L2, d), or against X
-    itself when X2 is None.  L1 and L2 may differ.  The symmetric Gram is
+    """(num_levels+1, N1, N2) signature level kernels of scaled sequences
+    X (N1, L1, d) against X2 (N2, L2, d), or against X itself when X2 is
+    None, at ``order`` (1, or the higher-order grid).  L1 and L2 may
+    differ.  The symmetric Gram is
     exactly symmetric (each unordered pair computed once and mirrored);
     the JAX kernel's is symmetric only to rounding, and that is the only
     difference between the two.
@@ -497,13 +607,13 @@ def fused_first_order_levels(X, X2=None, *, num_levels: int, base: str = "rbf",
     is the telescoped ``gram.level1_exact_cross`` in torch, as the JAX
     package sets it (``signature_pallas.py:754-762``): autograd gives it its
     gradient and the kernel's own level-1 sum a zero cotangent."""
-    _check_config(num_levels, base, order)
+    _check_config(num_levels, base)
     symmetric = X2 is None
     X2 = X if symmetric else X2
     Vl, Dl = ic._prep_seq(X, base, lhs=True)
     Vr, Dr = ic._prep_seq(X2, base, lhs=False)
     out = _SeqFn.apply(Vl, Dl, Vr, Dr, num_levels, base, difference,
-                       symmetric)
+                       symmetric, _order(order, num_levels))
     if not difference:
         return out
     inc_cross, _ = gram.increment_gram_fns(base)

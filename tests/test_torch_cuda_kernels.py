@@ -804,3 +804,95 @@ def test_matern12_svgp_serves_and_trains_on_the_card(cuda):
             opt.step()
             losses.append(loss.item())
         assert np.all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+# ---------------------------------------------------------------------------
+# order > 1: K5/K6 from the library built for (levels, order), the (order x
+# order) grid against the plain versions (``signature_cuda._levels`` /
+# ``_levels_vjp`` at that order) under the bounds above; symmetric outputs
+# exactly symmetric, K6 twice bit-identical.  matern12's symmetric case
+# holds its distinct pairs (a zero-diagonal cotangent) as the block above
+# does.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("levels,order", [(4, 2), (4, 4), (9, 3)])
+@pytest.mark.parametrize("base,diff,sym,L1,L2", [
+    ("rbf", True, False, 11, 18), ("rbf", True, False, 18, 11),
+    ("rbf", False, False, 11, 18), ("linear", True, False, 11, 18),
+    ("matern12", True, False, 11, 18), ("rbf", True, True, 9, 9),
+    ("matern12", True, True, 9, 9), ("rbf", True, False, 140, 131),
+    ("rbf", True, True, 130, 130)])
+def test_higher_order_seq_kernels_match_plain(cuda, levels, order, base,
+                                              diff, sym, L1, L2):
+    n2 = 7 if sym else 5
+    rows = _seq_rows(cuda, base, L1=L1, L2=L2, sym=sym, n2=n2)
+    kw = dict(num_levels=levels, base=base, difference=diff, symmetric=sym,
+              order=order)
+    ct = torch.randn((levels + 1, 7, n2), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(21))
+    if sym and base == "matern12":
+        ct = ct * ~torch.eye(7, dtype=torch.bool, device=cuda)
+    before = (sc.seq_fwd.launches, sc.seq_bwd.launches)
+    out = sc.seq_fwd(*rows, **kw)
+    grads = sc.seq_bwd(*rows, ct, **kw)
+    again = sc.seq_bwd(*rows, ct, **kw)
+    torch.cuda.synchronize()
+    assert (sc.seq_fwd.launches, sc.seq_bwd.launches) == (before[0] + 1,
+                                                          before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    rows64 = [t.double() for t in rows]
+    ref = sc.seq_fwd_plain(*rows64, **kw)
+    if sym:
+        assert torch.equal(out, out.transpose(1, 2))
+    if sym and base == "matern12":
+        off = ~torch.eye(7, dtype=torch.bool, device=cuda)
+        _close(out[:, off], ref[:, off], 1e-4)
+        _close(out, sc.seq_fwd_plain(*rows, **kw), KINK_FWD)
+    else:
+        _close(out, ref, 1e-4)
+    _grads_close([g.double() for g in grads],
+                 sc.seq_bwd_plain(*rows64, ct.double(), **kw))
+
+
+def test_higher_order_levels_do_not_depend_on_the_argument_order(cuda):
+    """K5/K6 put the shorter sequence inner, which transposes the grid's
+    roles: K(X, Y) = K(Y, X)^T, and the gradients through either agree, to
+    rounding."""
+    rng = np.random.RandomState(22)
+    X, X2 = (torch.tensor(rng.randn(n, L, 5) / np.sqrt(L),
+                          dtype=torch.float32, device=cuda,
+                          requires_grad=True)
+             for n, L in ((7, 11), (5, 18)))
+    ct = torch.randn((5, 7, 5), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(22))
+    kw = dict(num_levels=4, order=2)
+    out = sc.fused_first_order_levels(X, X2, **kw)
+    out_t = sc.fused_first_order_levels(X2, X, **kw)
+    _close(out.detach(), out_t.detach().transpose(1, 2), 1e-5)
+    g = torch.autograd.grad(out, (X, X2), ct)
+    g_t = torch.autograd.grad(out_t, (X, X2), ct.transpose(1, 2))
+    _grads_close(g, g_t)
+
+
+def test_higher_order_autograd_on_the_card_runs_k5_and_k6(cuda):
+    rng = np.random.RandomState(23)
+    X = torch.tensor(rng.randn(4, 12, 5) / 4, dtype=torch.float32,
+                     device=cuda, requires_grad=True)
+    X2 = torch.tensor(rng.randn(3, 20, 5) / 4, dtype=torch.float32,
+                      device=cuda, requires_grad=True)
+
+    def loss_of(a, b):
+        return (sc.fused_first_order_levels(a, num_levels=4, order=2)
+                .square().sum()
+                + sc.fused_first_order_levels(a, b, num_levels=4,
+                                              order=4).sum())
+
+    before = (sc.seq_fwd.launches, sc.seq_bwd.launches)
+    gX, gX2 = torch.autograd.grad(loss_of(X, X2), (X, X2))
+    assert (sc.seq_fwd.launches, sc.seq_bwd.launches) == (before[0] + 2,
+                                                          before[1] + 2)
+    Xc = X.detach().cpu().double().requires_grad_()
+    X2c = X2.detach().cpu().double().requires_grad_()
+    _grads_close((gX.cpu().double(), gX2.cpu().double()),
+                 torch.autograd.grad(loss_of(Xc, X2c), (Xc, X2c)))

@@ -20,6 +20,7 @@ import torch
 
 from gpsig_tpu.ops import base_kernels
 from gpsig_tpu.ops import signature as sig_ops
+from gpsig_tpu_torch.kernels import SignatureKernel
 from gpsig_tpu_torch.ops import signature_cuda as sc
 
 RNG = np.random.RandomState(31)
@@ -120,8 +121,8 @@ def test_wrappers_check_their_inputs():
         sc.seq_fwd(V, V, V, V, num_levels=M_LVL, base="cosine",
                    difference=True)
     with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        sc.fused_first_order_levels(torch.zeros(2, 4, 2), num_levels=M_LVL,
-                                    order=2)
+        SignatureKernel(2, M_LVL, base="matern32", device="cpu").K(
+            torch.zeros(2, 4, 2))
     meta = torch.zeros(3, 5, 4, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         sc.seq_fwd(meta, meta, meta, meta, num_levels=M_LVL, base="rbf",

@@ -107,7 +107,7 @@ def test_fused_auto_matches_off_and_on_raises_on_cpu():
 
 def test_outside_the_slice_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.kernels.SignatureRBF(D, M, order=2)
+        T.kernels.SignatureKernel(D, M, base="matern32", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.kernels.SignatureRBF(D, M, low_rank=True)
     _, _, tmodel, Xq = _setup(np.float64)
