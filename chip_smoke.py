@@ -132,6 +132,26 @@ and prints no result line):
    as 10b; (10e, after phase 9f) K5/K6 at orders 1, 2 and 4 at the Kzz,
    Kzx and full Kxx shapes against their plain versions, and the three
    models' request latency and training steps/s;
+11. the eight bases without a hand kernel -- cosine, poly, mix,
+   matern32, matern52 and spectral rbf/exp/mixed -- through their variants
+   (``SignatureCosine``, ``SignaturePoly(degree=3)``, ``SignatureMix``,
+   ``SignatureMatern32``, ``SignatureMatern52``,
+   ``SignatureSpectral(family=...)``, Q=5) at the benchmark width with the
+   heuristic lengthscales, under ``fused='auto'``: torch ops, the route the
+   JAX package takes for them (it has no Pallas kernel for them); (11a)
+   each base's inducing-tensors model served on the six buckets, means
+   within 1e-3 of the f64 path (torch ops on the card too) and the same
+   argmax where decided; (11b) one base of each family (cosine, poly, mix,
+   matern32, spectral_mixed) trained as phase 5: every leaf's gradient
+   within 1e-3 of its scale against f64, 30 NAdam steps under the phase-2
+   mask, losses falling, the frozen leaf bit-identical; (11c) the matern32
+   inducing-sequences model (the blocked seq x seq path) served, trained
+   and its ``predict_f(full_cov=True)`` held as phase 3; (11d) no kernel
+   launched in 11a-11c (every counter at 0), and a ``fused='on'`` twin of
+   each model raising on CUDA tensors; (11e, after phase 10e) each
+   model's request latency (median of 5 a bucket), and for the trained
+   ones training steps/s (median of 5 steps) with a profile of one step
+   and the device work of each covariance leg (Kzz, Kzx, Kxx's diagonal);
 4. times: the six kernels against their plain versions with CUDA events,
    interleaved plain / kernel / kernel / plain (K1 and K2 in both modes
    with both bounds, each unordered pair counted once and every ordered
@@ -152,7 +172,8 @@ order 4; the last line is ``{"ok": true,
 ``python3 chip_smoke.py --kernel-times`` builds the main library and runs
 phase 4a alone, printing its rows as one JSON line: a copy of the script
 in another checkout times that checkout's kernels, so two trees can be
-compared in one call.
+compared in one call.  ``python3 chip_smoke.py --bases`` runs phase 11
+alone (it builds nothing), its details in ``build/chip_smoke_bases.json``.
 """
 
 from __future__ import annotations
@@ -351,7 +372,8 @@ def synthetic_data():
 
 
 def synthetic_setup(ut, T, X, y, kind: str, num_lags=None, classes=C,
-                    base="rbf", order=1, fused="on"):
+                    base="rbf", order=1, fused="on", variant=None,
+                    ref_device="cpu"):
     """Benchmark-width SVGP with parameters from a numpy seed: the ported
     heuristics on the synthetic data -- 500 incremental inducing tensors
     (``kind='tensors'``) or 500 inducing sequences of length M+1
@@ -359,10 +381,12 @@ def synthetic_setup(ut, T, X, y, kind: str, num_lags=None, classes=C,
     q_sqrt perturbed so predictions differ across classes and examples;
     ``num_lags`` lagged copies of the data, the recipe's likelihood for
     ``classes`` (Bernoulli, one latent, for 2), the signature kernel's
-    ``base`` (SignatureRBF's, or SignatureMatern12's) and ``order``.
-    Returns the f32 model on the card (``fused``), its f64 twin on the CPU
-    (the plain versions) and ``build(dtype, fused, device)`` loaded with
-    the same parameters."""
+    ``base`` (SignatureRBF's, or SignatureMatern12's) and ``order``, or
+    the named ``variant`` (constructor name, keyword arguments) of
+    ``T.kernels``, given the heuristic lengthscales too.  Returns the f32
+    model on the card (``fused``), its f64 twin on ``ref_device`` (the CPU:
+    the plain versions) and ``build(dtype, fused, device)`` loaded with the
+    same parameters."""
     rng = np.random.RandomState(SEED + (1 if kind == "tensors" else 2))
     latent = 1 if classes == 2 else classes
     if kind == "tensors":
@@ -376,10 +400,14 @@ def synthetic_setup(ut, T, X, y, kind: str, num_lags=None, classes=C,
     tree = None
 
     def build(dtype, fused, device):
-        kern = T.kernels.SignatureKernel(D, LEVELS, base=base, order=order,
-                                         lengthscales=ls, num_lags=num_lags,
-                                         fused=fused, dtype=dtype,
-                                         device=device)
+        if variant is None:
+            kern = T.kernels.SignatureKernel(
+                D, LEVELS, base=base, order=order, lengthscales=ls,
+                num_lags=num_lags, fused=fused, dtype=dtype, device=device)
+        else:
+            kern = getattr(T.kernels, variant[0])(
+                D, LEVELS, order=order, lengthscales=ls, num_lags=num_lags,
+                fused=fused, dtype=dtype, device=device, **variant[1])
         if kind == "tensors":
             ind = T.InducingTensors(Z, LEVELS, increments=True, dtype=dtype,
                                     device=device)
@@ -402,7 +430,7 @@ def synthetic_setup(ut, T, X, y, kind: str, num_lags=None, classes=C,
         tree["kern"]["lags"] = tree["kern"]["lags"] + 0.5
         tree["kern"]["gamma"] = tree["kern"]["gamma"] + 0.3
     T.convert.load_jax_params(model, tree)
-    ref = build(torch.float64, "auto", "cpu")  # the plain versions
+    ref = build(torch.float64, "auto", ref_device)  # the plain versions
     return model, ref, build
 
 
@@ -925,12 +953,13 @@ def time_extra_levels(ic, sc):
     return rows
 
 
-def drive_serving(T, model, ref, X, expect, same_bucket=False):
+def drive_serving(T, model, ref, X, expect, same_bucket=False,
+                  ref_device="cpu"):
     """Phase 3: the serving path through its public entry points; the
-    kernels in ``expect`` must launch during the requests.  The f64 CPU
-    reference answers each request unpadded, or, with ``same_bucket``
-    (lags: padding changes the lagged features), through a Predictor with
-    the same buckets."""
+    kernels in ``expect`` must launch during the requests.  The f64
+    reference (on the CPU, or ``ref_device``) answers each request
+    unpadded, or, with ``same_bucket`` (lags: padding changes the lagged
+    features), through a Predictor with the same buckets."""
     pred = T.serving.Predictor(model, len_buckets=LEN_BUCKETS,
                                batch_buckets=BATCH_BUCKETS, device="cuda")
     pred.warmup(D)
@@ -948,11 +977,12 @@ def drive_serving(T, model, ref, X, expect, same_bucket=False):
     if same_bucket:
         ref_fn = T.serving.Predictor(
             ref, len_buckets=LEN_BUCKETS, batch_buckets=BATCH_BUCKETS,
-            device="cpu", dtype=torch.float64).predict_y
+            device=ref_device, dtype=torch.float64).predict_y
     else:
         def ref_fn(r):
             with torch.no_grad():
-                return ref.predict_y(torch.as_tensor(r, dtype=torch.float64))
+                return ref.predict_y(torch.as_tensor(
+                    r, dtype=torch.float64, device=ref_device))
     P = model.num_latent
     rows = []
     for (n, l), r, (mean, var) in zip(REQUESTS, reqs, outs):
@@ -961,7 +991,7 @@ def drive_serving(T, model, ref, X, expect, same_bucket=False):
               f"request ({n}, {l}): output shapes {mean.shape}, {var.shape}")
         check(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()),
               f"request ({n}, {l}): non-finite output")
-        ref_mean, _ = ref_fn(r)
+        ref_mean = ref_fn(r)[0].cpu()
         err = float((mean - ref_mean).abs().max())
         if P > 1:
             row_err = float((mean.sum(1) - 1.0).abs().max())
@@ -974,7 +1004,7 @@ def drive_serving(T, model, ref, X, expect, same_bucket=False):
             row_err = 0.0
             decided = (ref_mean[:, 0] - 0.5).abs() > MEAN_BOUND
             same = (mean[:, 0] > 0.5) == (ref_mean[:, 0] > 0.5)
-        print(f"  request (n={n}, l={l}): |mean - f64 CPU|={err:.3e} "
+        print(f"  request (n={n}, l={l}): |mean - f64|={err:.3e} "
               f"row-sum err={row_err:.3e} argmax agree={int(same.sum())}/{n}")
         check(err <= MEAN_BOUND, f"request ({n}, {l}): means off the f64 "
               f"CPU path by {err}")
@@ -996,12 +1026,15 @@ def leaf_grads(T, model, X, Y):
     return loss.item(), grads
 
 
-def gradient_check(T, model, ref, build, X, y, plain_floor=False):
+def gradient_check(T, model, ref, build, X, y, plain_floor=False,
+                   ref_device="cpu"):
     """Phase 5a: on the first minibatch, every leaf's gradient on the card
     (the kernels) against the port's f64 CPU path (the plain versions); the
     f32 plain PyTorch path on the card (``fused='off'``) is measured beside
     it.  ``plain_floor`` (matern12): a leaf that misses its bound where the
-    f32 plain path misses it too is held to no worse than that path."""
+    f32 plain path misses it too is held to no worse than that path.
+    ``ref_device``: where the f64 path runs (the CPU, or the card for the
+    bases without a kernel, whose f64 path is torch ops there too)."""
     idx = next(T.training.MinibatchStream(N_TRAIN, BATCH, seed_or_rng=SEED))
     xb, yb = X[idx], y[idx, None].astype(np.float32)
 
@@ -1010,7 +1043,7 @@ def gradient_check(T, model, ref, build, X, y, plain_floor=False):
                 torch.as_tensor(yb, dtype=dtype, device=device))
 
     loss_k, g_k = leaf_grads(T, model, *on("cuda", torch.float32))
-    loss_r, g_r = leaf_grads(T, ref, *on("cpu", torch.float64))
+    loss_r, g_r = leaf_grads(T, ref, *on(ref_device, torch.float64))
     off = build(torch.float32, "off", "cuda")
     loss_o, g_o = leaf_grads(T, off, *on("cuda", torch.float32))
     del off
@@ -1289,18 +1322,18 @@ def time_kernels(ic, ut, X):
     return rows
 
 
-def time_requests(pred, X):
+def time_requests(pred, X, reps=10, warm=2):
     """Phase 4b: request latency per bucket, host clock around a
-    synchronized predict_y, median of 10 warmed calls."""
+    synchronized predict_y, median of ``reps`` warmed calls."""
     rows = []
     for lb in LEN_BUCKETS:
         for b in BATCH_BUCKETS:
             Xq = X[:b, :lb]
-            for _ in range(2):
+            for _ in range(warm):
                 pred.predict_y(Xq)
             torch.cuda.synchronize()
             ts = []
-            for _ in range(10):
+            for _ in range(reps):
                 t0 = time.perf_counter()
                 mean, _ = pred.predict_y(Xq)
                 torch.cuda.synchronize()
@@ -1313,9 +1346,10 @@ def time_requests(pred, X):
     return rows
 
 
-def time_training(T, model, X, y):
+def time_training(T, model, X, y, reps=20, warm=5, profiled=3):
     """Phase 4c: training steps/s (host clock around each synchronized
-    step, median of 20 after 5 warm-up steps) and a profile of 3 steps."""
+    step, median of ``reps`` after ``warm`` warm-up steps) and a profile
+    of ``profiled`` steps."""
     opts = T.training.masked_optimizer(
         T.training.nadam(LR), model, T.training.path_mask(model, phase2_mask))
     data = T.training.BatchIterator(
@@ -1329,11 +1363,11 @@ def time_training(T, model, X, y):
         for o in opts:
             o.step()
 
-    for _ in range(5):
+    for _ in range(warm):
         step()
     torch.cuda.synchronize()
     ts = []
-    for _ in range(20):
+    for _ in range(reps):
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -1342,7 +1376,22 @@ def time_training(T, model, X, y):
     print(f"  training step: median {med:.3f} ms ({1e3 / med:.2f} steps/s), "
           f"min {min(ts):.3f} ms")
     return dict(step_ms=ts, median_ms=med, steps_per_s=1e3 / med,
-                profile=profile_steps(step))
+                profile=profile_steps(step, profiled))
+
+
+def _device_kernels(prof) -> dict:
+    """{name: (microseconds, count)} of a profile's device activity
+    (kernels, copies), without the ranges that user annotations such as
+    Optimizer.step draw over it on the device."""
+    from torch.autograd import DeviceType
+
+    kernels: dict = {}
+    for e in prof.events():
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            us, count = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    return kernels
 
 
 def profile_steps(step, n_steps: int = 3) -> dict:
@@ -1361,14 +1410,7 @@ def profile_steps(step, n_steps: int = 3) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     events = prof.key_averages()
-    # device activity (kernels, copies), without the ranges that user
-    # annotations such as Optimizer.step draw over it on the device
-    kernels: dict = {}
-    for e in prof.events():
-        if (e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            us, count = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    kernels = _device_kernels(prof)
     device_ms = sum(us for us, _ in kernels.values()) / 1e3 / n_steps
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
@@ -2107,6 +2149,199 @@ def time_order_kernels(sc, ic, Zs, X, ls):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the eight bases without a hand kernel (cosine, poly, mix,
+# matern32/52, spectral rbf/exp/mixed), as torch ops -- the route the JAX
+# package takes for them through XLA (it has no Pallas kernel for them)
+# ---------------------------------------------------------------------------
+
+BASES = {  # base: (variant of T.kernels, its keyword arguments)
+    "cosine": ("SignatureCosine", {}),
+    "poly": ("SignaturePoly", {"degree": 3}),
+    "mix": ("SignatureMix", {}),
+    "matern32": ("SignatureMatern32", {}),
+    "matern52": ("SignatureMatern52", {}),
+    "spectral_rbf": ("SignatureSpectral", {"family": "rbf"}),
+    "spectral_exp": ("SignatureSpectral", {"family": "exp"}),
+    "spectral_mixed": ("SignatureSpectral", {"family": "mixed"}),
+}
+TRAINED = ("cosine", "poly", "mix", "matern32", "spectral_mixed")  # a family each
+SEQ_BASE = "matern32"  # the inducing-sequences model of 11c
+
+
+def check_no_launch(launches: dict, what: str) -> None:
+    check(not any(launches.values()), f"{what} launched a kernel: "
+          f"{launches}")
+
+
+def fused_on_raises(T, base, build, X) -> str:
+    """Phase 11d: a ``fused='on'`` twin of the model raises on CUDA tensors
+    (no kernel for the base, in JAX as here), naming the kernels' bases."""
+    twin = build(torch.float32, "on", "cuda")
+    try:
+        with torch.no_grad():
+            twin.predict_y(torch.as_tensor(X[:2], device="cuda"))
+    except ValueError as e:
+        check("has no CUDA kernel" in str(e) and "rbf" in str(e),
+              f"{base}: fused='on' raised {e}")
+        return str(e)
+    check(False, f"{base}: fused='on' served without a kernel")
+
+
+def kzx_f32_error(model, ref, X) -> list:
+    """Phase 11a: each level of the normalized Kzx (f32, the closed forms)
+    against the f64 path on one minibatch of 50, as max abs over the
+    level's largest entry (read, not bounded: the spectral closed form is
+    the leg ADVICE.md leaves unmeasured)."""
+    xb = X[:BATCH]
+    with torch.no_grad():
+        got, want = (m.kern.K_tens_n_seq_covs(
+            m.ind.Z, torch.as_tensor(xb, dtype=dt, device="cuda"),
+            increments=True, return_levels=True)[1]
+            for m, dt in ((model, torch.float32), (ref, torch.float64)))
+    errs = [float((g.double() - w).abs().max() / w.abs().max().clamp(
+        min=1e-300)) for g, w in zip(got, want)]
+    print("  Kzx f32 vs f64, each level: " + ", ".join(
+        f"{e:.2e}" for e in errs))
+    return errs
+
+
+def drive_base_model(T, ut, X, y, base, kind="tensors"):
+    """Phases 11a-11d for one base: the benchmark-width model (500
+    incremental inducing tensors, or 500 inducing sequences of length 5)
+    through the variant's constructor under ``fused='auto'``, served on the
+    six buckets with its means held to the f64 path on the card (torch ops
+    there too) at phase 3's bound, no kernel launched, and its Kzx's f32
+    error read level by level (``kzx_f32_error``); for the bases in
+    ``TRAINED`` and the sequences model, every leaf's gradient held against
+    f64 and 30 NAdam steps under the phase-2 mask, no kernel launched; for
+    the sequences model, ``predict_f(full_cov=True)`` as phase 3 holds it;
+    and a ``fused='on'`` twin raising."""
+    model, ref, build = synthetic_setup(ut, T, X, y, kind, fused="auto",
+                                        variant=BASES[base],
+                                        ref_device="cuda")
+    check(model.kern.base == base, f"kernel base {model.kern.base}")
+    pred, serve_launches, requests = drive_serving(T, model, ref, X, (),
+                                                   ref_device="cuda")
+    check_no_launch(serve_launches, f"serving {base}")
+    out = dict(base=base, kind=kind, serving_launches=serve_launches,
+               requests=requests, fused_on=fused_on_raises(T, base, build, X))
+    if kind == "tensors":
+        out["kzx_f32_vs_f64"] = kzx_f32_error(model, ref, X)
+    print(f"  fused='on' raises: {out['fused_on'][:80]}...")
+    if base in TRAINED or kind == "sequences":
+        out["gradient_check"] = gradient_check(T, model, ref, build, X, y,
+                                               ref_device="cuda")
+        launches, out["training"] = drive_training(T, model, X, y, {})
+        out["training_launches"] = launches
+    del ref
+    if kind == "sequences":
+        print(f"  predict_f(full_cov=True), {base} sequences:")
+        out["full_cov"] = full_cov_check(T, model, X, k5=0)
+        check_no_launch(out["full_cov"]["launches"], "the full covariance")
+    torch.cuda.empty_cache()
+    return model, pred, out
+
+
+def device_ms(fn, n: int = 1) -> float:
+    """Device time of ``fn`` (the sum of its kernels and copies), from
+    ``torch.profiler``, per call (the model is warm from its timed steps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(us for us, _ in _device_kernels(prof).values()) / 1e3 / n
+
+
+def leg_device_ms(model, X) -> dict:
+    """Phase 11e: the device work of each covariance leg of a training step
+    on one minibatch of 50, forward and backward under a sum's cotangent:
+    Kzz, Kzx and Kxx's diagonal, from the profiler."""
+    kern, ind = model.kern, model.ind
+    xb = torch.as_tensor(X[:BATCH], device="cuda")
+    tensors = hasattr(ind, "increments")
+
+    def leg(which):
+        def fn():
+            cp = kern.constrain()
+            Xs = kern._scale_sequences(cp, xb)
+            if tensors:
+                Z = kern._scale_tensors(cp, ind.Z)
+                out = {"Kzz": lambda: kern._K_tens(cp, Z, True),
+                       "Kzx": lambda: kern._K_tens_vs_seq(cp, Z, Xs, True),
+                       "Kxx_diag": lambda: kern._K_seq_diag(cp, Xs)}[which]()
+            else:
+                Zs = kern._scale_sequences(cp, ind.Z)
+                out = {"Kzz": lambda: kern._K_seq(cp, Zs),
+                       "Kzx": lambda: kern._K_seq(cp, Zs, Xs),
+                       "Kxx_diag": lambda: kern._K_seq_diag(cp, Xs)}[which]()
+            out.sum().backward()
+            model.zero_grad(set_to_none=True)
+        return fn
+
+    legs = {name: device_ms(leg(name)) for name in ("Kzz", "Kzx",
+                                                    "Kxx_diag")}
+    top = max(legs, key=legs.get)
+    print("  device work of the covariance legs (fwd + bwd): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in legs.items())
+          + f"; the largest: {top}")
+    return dict(legs_ms=legs, largest=top)
+
+
+def serve_and_train_bases(T, ut, X, y) -> dict:
+    """Phases 11a-11d: every base without a kernel served through its
+    inducing-tensors model (those of ``TRAINED`` trained), then the
+    ``SEQ_BASE`` inducing-sequences model."""
+    print("phase 11: the eight bases without a hand kernel, as torch ops")
+    print("  11a-11b, 11d: the inducing-tensors models")
+    models = {}
+    for base in BASES:
+        print(f"  {base}{' (served and trained)' if base in TRAINED else ''}"
+              f" [{time.perf_counter() - T0:.1f} s]:", flush=True)
+        models[base] = drive_base_model(T, ut, X, y, base)
+    print(f"  11c: the {SEQ_BASE} inducing-sequences model "
+          f"[{time.perf_counter() - T0:.1f} s]", flush=True)
+    models[f"{SEQ_BASE}_sequences"] = drive_base_model(T, ut, X, y, SEQ_BASE,
+                                                       "sequences")
+    return models
+
+
+def time_bases(T, X, y, models, card, serve_train_s) -> dict:
+    """Phase 11e: each phase-11 model's request latency per bucket (median
+    of 5 after 1 warm-up call), and for the trained ones training steps/s
+    (median of 5 after 2 warm-up steps) with a profile of one step and the
+    device work of each covariance leg: shallower than phase 4, so that
+    the script keeps within its time limit (the spectral step takes ~1.5 s
+    and dispatches ~35,000 launches)."""
+    print(f"phase 11e: times of the eight bases ({card})")
+    t0 = time.perf_counter()
+    out = {}
+    for name, (model, pred, res) in models.items():
+        print(f"  {name} [{time.perf_counter() - T0:.1f} s]:", flush=True)
+        res = dict(res, request_latency=time_requests(pred, X, reps=5,
+                                                       warm=1))
+        if "training" in res:
+            res["training_time"] = time_training(T, model, X, y, reps=5,
+                                                 warm=2, profiled=1)
+            res["legs"] = leg_device_ms(model, X)
+        out[name] = res
+    out["seconds"] = dict(serve_and_train=serve_train_s,
+                          times=time.perf_counter() - t0)
+    print(f"  phase 11: {serve_train_s:.1f} s served and trained, "
+          f"{out['seconds']['times']:.1f} s timed")
+    return out
+
+
+def run_phase11(T, ut, X, y, card) -> dict:
+    t0 = time.perf_counter()
+    models = serve_and_train_bases(T, ut, X, y)
+    return time_bases(T, X, y, models, card, time.perf_counter() - t0)
+
+
 def main() -> None:
     # phase 1: device and build
     check(torch.cuda.is_available(), "CUDA is not available")
@@ -2132,6 +2367,17 @@ def main() -> None:
         print(f"phase 4a: kernel times ({card})")
         rows = time_kernels(ic, ut, synthetic_data()[0])
         print(json.dumps({"card": card, "kernel_times": rows}))
+        return
+    if "--bases" in sys.argv[1:]:
+        # phase 11 alone (it builds no kernel): a quick run of the eight
+        # bases without one; the details go to build/chip_smoke_bases.json
+        X, y = synthetic_data()
+        bases = run_phase11(T, ut, X, y, card)
+        out_dir = ROOT / "build"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_bases.json").write_text(
+            json.dumps(dict(card=card, bases=bases), indent=1))
+        print(json.dumps({"card": card, "seconds": bases["seconds"]}))
         return
     libs = build_libraries(_cuda_build)
     lib, build_s = libs[1]
@@ -2227,6 +2473,9 @@ def main() -> None:
     print(f"  10d: the order-{LEVELS} (full grid) inducing-sequences model")
     o4_smodel, o4_spred, o4_sequences = drive_order_model(
         T, ut, X, y, "sequences", LEVELS)
+    t11 = time.perf_counter()
+    base_models = serve_and_train_bases(T, ut, X, y)
+    t11 = time.perf_counter() - t11
     print(f"phase 4: times ({card})")
     ktimes = (time_kernels(ic, ut, X) + time_seq_kernels(sc, ic, Zs, X, ls)
               + time_extra_levels(ic, sc))
@@ -2256,6 +2505,7 @@ def main() -> None:
         print(f"  {name}:")
         order_models[name] = dict(res, request_latency=time_requests(prd, X),
                                   training_time=time_training(T, mdl, X, y))
+    bases = time_bases(T, X, y, base_models, card, t11)
     check("jax" not in sys.modules, "something imported jax")
 
     kernels = []
@@ -2350,6 +2600,7 @@ def main() -> None:
                        kernel_times=m12_times),
                    orders=dict(kernel_checks=order_checks,
                                kernel_times=order_times, **order_models),
+                   bases=bases,
                    kernel_times=ktimes, request_latency=latency,
                    training_time=train_time, kernels=kernels,
                    seconds=time.perf_counter() - T0)

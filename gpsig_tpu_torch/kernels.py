@@ -7,15 +7,26 @@ raw values carry over unchanged (``convert.load_jax_params``).
 
 Dispatch follows the JAX ``fused`` / ``fast_math`` contract
 (``gpsig_tpu/kernels.py:366-425``) with "TPU backend" read as "CUDA tensor,
-float32":
+float32", and is decided by capability, as JAX's ``_fused_supported``:
+the hand kernels exist for the bases in ``inducing_cuda.SUPPORTED_BASES``
+(rbf, linear, matern12), as JAX's Pallas kernels do
+(``gpsig_tpu/ops/signature_pallas.py:73``).
 
 * ``'off'`` runs the reference-shaped torch graphs (``ops/signature.py``);
-* ``'auto'`` and ``'on'`` send Kzz and Kzx of inducing tensors through the
-  kernel wrappers of ``ops/inducing_cuda.py`` and the seq x seq Grams (with
-  ``difference``) through ``ops/signature_cuda.py``: on a CPU tensor a
-  wrapper runs its plain version, on a CUDA tensor it launches the kernel,
-  or raises for float64;
-* ``'on'`` on a CPU tensor raises.
+* ``'auto'`` and ``'on'`` send, for those bases, Kzz and Kzx of inducing
+  tensors through the kernel wrappers of ``ops/inducing_cuda.py`` and the
+  seq x seq Grams (with ``difference``) through ``ops/signature_cuda.py``:
+  on a CPU tensor a wrapper runs its plain version, on a CUDA tensor it
+  launches the kernel, or raises for float64;
+* ``'auto'`` runs the other eight bases (cosine, poly, mix, matern32/52,
+  spectral rbf/exp/mixed) as torch ops and launches no kernel of the port.
+  That is no hidden fallback: JAX has no kernel for them either and runs
+  them through XLA, by the same route -- at f32 the cancellation-free
+  closed-form increment Grams (``gram.increment_gram_fns``; the seq x seq
+  Grams blocked over example tiles, ``gram.blocked_first_order_levels``;
+  spectral Kzz on the naive graph, ``gram.tens_closed_form_ok``), at f64
+  the reference graphs;
+* ``'on'`` raises for those eight bases, and on a CPU tensor.
 * ``fast_math`` is accepted; every value means full f32 on the card.
 
 No fallback is silent: the kernels take any sequence lengths, any feature
@@ -39,9 +50,12 @@ raises, otherwise it takes the closed-form slot Grams and
 (``gpsig_tpu/kernels.py:468-538``).  Kzz of inducing tensors does not
 depend on the order and keeps K1/K2.
 
-Outside the port so far -- low-rank features, ``K_blocked`` and the public
-``K_tens`` / ``K_tens_vs_seq`` -- the module raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+``K_blocked`` evaluates the seq x seq Gram over example tiles
+(``method='xla'``: the blocked torch path with the closed forms), or
+through K5 (``method='pallas'``, for the kernels' bases).  Outside the port
+so far -- low-rank features and the public ``K_tens`` / ``K_tens_vs_seq``
+-- the module raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -56,6 +70,20 @@ from .ops import base_kernels, gram, lags
 from .ops import inducing_cuda as ic
 from .ops import signature as sig_ops
 from .ops import signature_cuda as sc
+
+
+def _auto_gram_block(N: int, L1: int, L2: int,
+                     budget_bytes: int = 128 * 2**20) -> int:
+    """Example-block size of the blocked seq x seq path: the largest block
+    whose (B, B, L1-1, L2-1) f32 increment tile fits the budget, floored at
+    8.  JAX's rule (``gpsig_tpu/kernels.py:60``) also caps it at 64 and
+    counts the longer length twice, an XLA choice; here each tile is a
+    Python-looped batch of torch launches, so the port takes as few tiles
+    as the budget allows (the inducing-sequences model's 500 x 500 Kzz is
+    one tile, not 64).  The tiles' entries do not depend on the block."""
+    per_pair = 4 * max(L1 - 1, 1) * max(L2 - 1, 1)
+    bs = int(np.sqrt(max(budget_bytes // per_pair, 1)))
+    return max(8, min(int(N), bs))
 
 
 def _as_sequences(X: torch.Tensor, num_features: int) -> torch.Tensor:
@@ -77,17 +105,22 @@ class SignatureKernel(nn.Module):
 
     Args mirror ``gpsig_tpu.kernels.SignatureKernel``; ``dtype`` and
     ``device`` place the parameters (``device`` defaults to
-    ``config.default_device()``, the card).  ``fused`` selects the covariance path
-    ('auto' | 'on' | 'off', see the module docstring); ``fast_math`` is
-    accepted for the JAX signature and means full f32 at every value.
+    ``config.default_device()``, the card).  ``base`` names one of the 11
+    bases of ``ops/base_kernels.BASE_KERNELS``, ``base_options`` its static
+    options (``poly_gamma`` / ``poly_degree``, the spectral ``Q``), and
+    ``generator`` (a CPU ``torch.Generator``) draws the spectral mixture's
+    initial values.  ``fused`` selects the covariance path ('auto' | 'on' |
+    'off', see the module docstring); ``fast_math`` is accepted for the JAX
+    signature and means full f32 at every value.
     """
 
     def __init__(self, num_features: int, num_levels: int, *, order: int = 1,
                  normalization: bool = True, difference: bool = True,
                  variances=1.0, lengthscales=1.0, num_lags: int | None = None,
                  low_rank: bool = False, base: str = "rbf",
-                 fused: str = "auto", fast_math="high", dtype=None,
-                 device=None):
+                 base_options: dict | None = None, fused: str = "auto",
+                 fast_math="high", dtype=None, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.num_features = int(num_features)
         self.num_levels = int(num_levels)
@@ -106,7 +139,9 @@ class SignatureKernel(nn.Module):
                 "item 5")
         self.normalization = bool(normalization)
         self.difference = bool(difference)
+        base_kernels.get(base)
         self.base = base
+        self.base_options = dict(base_options or {})
         if fused not in ("auto", "on", "off"):
             raise ValueError(f"fused must be 'auto'|'on'|'off', got {fused!r}")
         self.fused = fused
@@ -127,18 +162,26 @@ class SignatureKernel(nn.Module):
         if self.num_lags > 0:
             self.bijectors["lags"] = "sigmoid"
             self.bijectors["gamma"] = "positive"
-        _, base_bij = base_kernels.init_params(self.base)
+        _, base_bij = self._base_init(dtype, None, None)
         self.bijectors.update(base_bij)
-        for name, raw in self.init_params(dtype, device).items():
+        for name, raw in self.init_params(dtype, device, generator).items():
             self.register_parameter(name, nn.Parameter(raw))
 
     # ------------------------------------------------------------------
     # parameters
     # ------------------------------------------------------------------
 
-    def init_params(self, dtype=None, device=None) -> dict:
+    def _base_init(self, dtype, device, generator):
+        return base_kernels.init_params(
+            self.base, generator,
+            num_features=self.num_features * (self.num_lags + 1),
+            dtype=dtype, device=device, **self.base_options)
+
+    def init_params(self, dtype=None, device=None,
+                    generator: torch.Generator | None = None) -> dict:
         """Fresh raw (unconstrained) parameters, as the JAX pytree holds
-        them."""
+        them; the spectral mixture's draws come from ``generator`` (seed 0
+        if None)."""
         dtype = dtype or cfg.default_float()
         device = device or cfg.default_device()
         raw = {
@@ -155,15 +198,13 @@ class SignatureKernel(nn.Module):
                                       "sigmoid", dtype, device)
             raw["gamma"] = pm.raw_init(gamma / gamma.sum(), "positive", dtype,
                                        device)
-        base_raw, _ = base_kernels.init_params(self.base, dtype=dtype,
-                                               device=device)
-        raw.update(base_raw)
+        raw.update(self._base_init(dtype, device, generator)[0])
         return raw
 
     def constrain(self) -> dict:
         cp = {name: pm.constrain(p, self.bijectors.get(name, "identity"))
               for name, p in self.named_parameters()}
-        cp.update(base_kernels.static_params(self.base))
+        cp.update(base_kernels.static_params(self.base, **self.base_options))
         return cp
 
     def _base_kern(self, cp: dict):
@@ -204,16 +245,27 @@ class SignatureKernel(nn.Module):
     # unnormalized level computations
     # ------------------------------------------------------------------
 
-    def _closed_form_fns(self, dtype):
+    def _closed_form_fns(self, cp: dict, dtype):
         """(inc_cross, inc_diag) closed forms in the f32 regime, unless
-        ``fused='off'`` pins the reference-shaped graphs."""
+        ``fused='off'`` pins the reference-shaped graphs; ``cp`` (the
+        constrained and static parameters) gives mix, poly and the spectral
+        families theirs."""
         if self.fused == "off" or dtype != torch.float32:
             return None, None
-        return gram.increment_gram_fns(self.base)
+        return gram.increment_gram_fns(self.base, cp)
 
     def _kernel_route(self, t: torch.Tensor) -> bool:
-        """Whether the covariances go through the kernel wrappers."""
+        """Whether the covariances go through the kernel wrappers: for the
+        bases that have kernels, unless ``fused='off'``."""
         if self.fused == "off":
+            return False
+        if self.base not in ic.SUPPORTED_BASES:
+            if self.fused == "on":
+                raise ValueError(
+                    f"fused='on' but base {self.base!r} has no CUDA kernel "
+                    "(neither has the JAX package a Pallas one); the "
+                    f"kernels support the bases {ic.SUPPORTED_BASES}; use "
+                    "fused='auto' to compute it with torch ops")
             return False
         if self.fused == "on" and t.device.type != "cuda":
             raise ValueError(
@@ -240,6 +292,18 @@ class SignatureKernel(nn.Module):
             return sc.fused_first_order_levels(
                 X, X2, num_levels=self.num_levels, base=self.base,
                 difference=True, order=self.order)
+        if self.difference:
+            # a base without a kernel: closed-form increment Grams over
+            # example tiles, so the (N1, L1, N2, L2) Gram is never whole
+            inc_cross, _ = self._closed_form_fns(cp, X.dtype)
+            if inc_cross is not None:
+                N2, L2 = (X.shape[0], X.shape[1]) if X2 is None else (
+                    X2.shape[0], X2.shape[1])
+                return gram.blocked_first_order_levels(
+                    self._base_kern(cp), X, X2, num_levels=self.num_levels,
+                    order=self.order, block_size=_auto_gram_block(
+                        max(X.shape[0], N2), X.shape[1], L2),
+                    increment_fn=inc_cross)
         kern = self._base_kern(cp)
         N1, L1, d = X.shape
         if X2 is None:
@@ -253,7 +317,7 @@ class SignatureKernel(nn.Module):
     def _K_seq_diag(self, cp: dict, X):
         """(M+1, N) unnormalized per-level diagonals."""
         if self.difference:
-            _, inc_diag = self._closed_form_fns(X.dtype)
+            _, inc_diag = self._closed_form_fns(cp, X.dtype)
             if inc_diag is not None:
                 G = inc_diag(X)  # (N, L-1, L-1), pre-differenced
                 if self.order == 1:
@@ -271,6 +335,14 @@ class SignatureKernel(nn.Module):
             return ic.fused_tensor_levels(
                 Z, num_levels=self.num_levels, base=self.base,
                 increments=increments)
+        if increments:
+            # each slot pair is a 2-point path: the closed forms apply,
+            # except where tens_closed_form_ok keeps the naive graph
+            inc_cross, _ = self._closed_form_fns(cp, Z.dtype)
+            if inc_cross is not None and gram.tens_closed_form_ok(self.base):
+                return sig_ops.tensor_kern(gram.tens_slot_grams(
+                    gram.increment_gram_slots_fn(self.base, cp), Z),
+                    self.num_levels)
         kern = self._base_kern(cp)
         lt, n_Z, d = Z.shape[0], Z.shape[1], Z.shape[-1]
         if increments:
@@ -298,7 +370,7 @@ class SignatureKernel(nn.Module):
         if increments and self.difference:
             # closed-form slot Grams of the 2-point slot paths, then the
             # time recursion as triangular matmuls (any order)
-            inc_cross, _ = self._closed_form_fns(X.dtype)
+            inc_cross, _ = self._closed_form_fns(cp, X.dtype)
             if inc_cross is not None:
                 M = gram.tens_vs_seq_slot_grams(inc_cross, Z, X)
                 return gram.tens_vs_seq_levels_mxu(M, self.num_levels,
@@ -389,9 +461,53 @@ class SignatureKernel(nn.Module):
         K_lvls = self._K_seq_diag(cp, self._scale_sequences(cp, X))
         return self._finalize(self._level_scale(cp, K_lvls), return_levels)
 
-    def K_blocked(self, *args, **kwargs):
-        raise NotImplementedError(
-            "K_blocked is not ported yet: ROADMAP Queue 1, item 6")
+    def K_blocked(self, X, X2=None, *, block_size: int = 16,
+                  diag_block_size: int = 64, return_levels: bool = False,
+                  fast_math=False, method: str = "xla"):
+        """``K`` over (block, block) example tiles: peak memory
+        O(block^2 L^2) instead of O(N^2 L^2) (``gpsig_tpu/kernels.py:656``).
+
+        method:
+          'xla'    -- the blocked torch path (``gram.blocked_first_order_
+                      levels``) with the closed-form increment Grams of
+                      every base that has one, at any dtype; differentiable.
+          'pallas' -- K5/K6 (``signature_cuda``) for the kernels' bases
+                      (rbf, linear, matern12); a symmetric Gram is
+                      normalized by its own diagonal, a cross Gram by the
+                      blocked diagonals.  Other bases take 'xla', as JAX's
+                      do.
+        ``fast_math`` is accepted; every value means full f32.
+        """
+        if method == "pallas" and self.base not in ic.SUPPORTED_BASES:
+            method = "xla"
+        if method not in ("xla", "pallas"):
+            raise ValueError(f"unknown method {method!r}")
+        cp = self.constrain()
+        Xs = self._scale_sequences(cp, _as_sequences(X, self.num_features))
+        X2s = None if X2 is None else self._scale_sequences(
+            cp, _as_sequences(X2, self.num_features))
+        kern = self._base_kern(cp)
+        inc_cross, inc_diag = gram.increment_gram_fns(self.base, cp)
+        if method == "pallas":
+            K_lvls = sc.fused_first_order_levels(
+                Xs, X2s, num_levels=self.num_levels, base=self.base,
+                difference=self.difference, order=self.order)
+        else:
+            K_lvls = gram.blocked_first_order_levels(
+                kern, Xs, X2s, num_levels=self.num_levels, order=self.order,
+                difference=self.difference, block_size=block_size,
+                increment_fn=inc_cross)
+        if self.normalization:
+            if X2s is None:
+                K_lvls, _ = self._normalize_sym(K_lvls)
+            else:
+                d1, d2 = (torch.sqrt(gram.blocked_first_order_levels_diag(
+                    kern, V, num_levels=self.num_levels, order=self.order,
+                    difference=self.difference, block_size=diag_block_size,
+                    increment_diag_fn=inc_diag) + cfg.jitter())
+                    for V in (Xs, X2s))
+                K_lvls = K_lvls / (d1[:, :, None] * d2[:, None, :])
+        return self._finalize(self._level_scale(cp, K_lvls), return_levels)
 
     def K_tens_n_seq_covs(self, Z, X, *, full_X_cov: bool = False,
                           increments: bool = False,
@@ -438,9 +554,34 @@ class SignatureKernel(nn.Module):
         return tuple(torch.sum(o, dim=0) for o in out)
 
 
-def _variant(name: str, base: str):
+_SPECTRAL_FAMILIES = {"exp": "exp", "exponential": "exp", "gauss": "rbf",
+                      "gaussian": "rbf", "rbf": "rbf", "mix": "mixed",
+                      "mixed": "mixed"}
+
+
+def _variant(name: str, base: str, **default_opts):
+    """A named constructor with JAX's keyword routing
+    (``gpsig_tpu/kernels.py:1025``): ``gamma`` and ``degree`` go to the
+    poly options, ``Q`` to the spectral ones, and ``family`` (or an alias)
+    picks the spectral base, whose lengthscales default to None."""
+
     def ctor(num_features, num_levels, **kwargs):
-        return SignatureKernel(num_features, num_levels, base=base, **kwargs)
+        opts = dict(default_opts)
+        opts.update(kwargs.pop("base_options", None) or {})
+        for key, opt in (("gamma", "poly_gamma"), ("degree", "poly_degree"),
+                         ("Q", "Q"), ("family", "family")):
+            if key in kwargs:
+                opts[opt] = kwargs.pop(key)
+        b = base
+        if base == "spectral":
+            family = opts.pop("family", "rbf")
+            fam = _SPECTRAL_FAMILIES.get(family)
+            if fam is None:
+                raise ValueError(f"Unrecognized spectral family {family!r}")
+            b = f"spectral_{fam}"
+            kwargs.setdefault("lengthscales", None)
+        return SignatureKernel(num_features, num_levels, base=b,
+                               base_options=opts, **kwargs)
 
     ctor.__name__ = name
     ctor.__qualname__ = name
@@ -449,8 +590,14 @@ def _variant(name: str, base: str):
 
 
 SignatureLinear = _variant("SignatureLinear", "linear")
+SignatureCosine = _variant("SignatureCosine", "cosine")
+SignaturePoly = _variant("SignaturePoly", "poly")
 SignatureRBF = _variant("SignatureRBF", "rbf")
 SignatureGauss = SignatureRBF
+SignatureMix = _variant("SignatureMix", "mix")
+SignatureSpectral = _variant("SignatureSpectral", "spectral")
 SignatureMatern12 = _variant("SignatureMatern12", "matern12")
 SignatureLaplace = SignatureMatern12
 SignatureExponential = SignatureMatern12
+SignatureMatern32 = _variant("SignatureMatern32", "matern32")
+SignatureMatern52 = _variant("SignatureMatern52", "matern52")

@@ -1,23 +1,31 @@
 """Cancellation-free increment Grams and batched level recursions.
 
-The subset of ``gpsig_tpu/ops/gram.py`` that the port runs: the f32
-Kxx-diagonal leg (closed-form rbf/linear/matern12 increment Grams, the
-level recursion with exclusive cumsums as triangular-ones matmuls, the
-telescoped exact level 1 of a diagonal and of a cross Gram), the
-higher-order (order > 1) level grid on batched Grams and the
-tensor-vs-sequence levels from closed-form slot Grams (the order > 1 Kzx,
-which has no kernel), the accurate
-f32 ``exp``/``expm1`` that the plain versions of the kernels use, and the
-dots-level matern12 closed forms with their explicit partials, the same
-formulas as ``csrc/common.cuh``'s.
+The port of ``gpsig_tpu/ops/gram.py``: the closed-form increment Grams of
+every base (rbf, linear, matern12/32/52, cosine, and, from the constrained
+parameters, mix, integer-degree poly and the spectral families), the level
+recursion with exclusive cumsums as triangular-ones matmuls, the
+telescoped exact level 1 of a diagonal and of a cross Gram, the
+higher-order (order > 1) level grid on batched Grams, the Kzz and Kzx slot
+Grams of incremental inducing tensors from the closed forms, the
+tensor-vs-sequence levels, and the seq x seq Gram blocked over example
+tiles (``blocked_first_order_levels``, the route of the bases without a
+hand kernel).  Also the accurate f32 ``exp``/``expm1`` that the plain
+versions of the kernels use, and the dots-level matern12 closed forms with
+their explicit partials, the same formulas as ``csrc/common.cuh``'s.
 
 Where the JAX package takes a matmul ``precision`` argument, the port has
-none: ``config.py`` keeps every f32 matmul in full f32.
+none: ``config.py`` keeps every f32 matmul in full f32.  JAX's
+``jax.vmap`` over spectral components is a loop here, its ``lax.map`` over
+example tiles a Python loop, and its ``stop_gradient`` on a regime
+selector ``.detach()``.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .signature import grid_next
 
@@ -67,23 +75,19 @@ def _expm1_stable(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _linear_increment_cross(Xa, Xb):
-    """(A, L1, d), (B, L2, d) -> (A, B, L1-1, L2-1) linear increment Gram."""
-    dXa = Xa[:, 1:] - Xa[:, :-1]
-    dXb = Xb[:, 1:] - Xb[:, :-1]
-    return torch.einsum("asd,btd->abst", dXa, dXb)
+def _start(X):
+    """The first point of each step of (..., L, d) paths: (..., L-1, d)."""
+    return X[..., :-1, :]
 
 
-def _linear_increment_pair(Xa, Xb):
-    """(N, La, d), (N, Lb, d) -> (N, La-1, Lb-1) per-example linear
-    increment Grams."""
-    dXa = Xa[:, 1:] - Xa[:, :-1]
-    dXb = Xb[:, 1:] - Xb[:, :-1]
-    return torch.einsum("nsd,ntd->nst", dXa, dXb)
+def _step(X):
+    """The steps of (..., L, d) paths: (..., L-1, d)."""
+    return X[..., 1:, :] - X[..., :-1, :]
 
 
-def _linear_increment_diag(X):
-    return _linear_increment_pair(X, X)
+def _linear_increment_core(Xa, Xb, spec, bcast_a, bcast_b):
+    """The linear increment Gram: the steps' inner products (exact)."""
+    return torch.einsum(spec, _step(Xa), _step(Xb))
 
 
 def _rbf_gaps(Xa, Xb, spec, bcast_a, bcast_b):
@@ -91,10 +95,10 @@ def _rbf_gaps(Xa, Xb, spec, bcast_a, bcast_b):
     dxx)`` with A(x,y) = -|x-y|^2/2 at the base corner, d01 = A(x,y') -
     A(x,y) = <x,dy> - d(|y|^2)/2 (d10 symmetric) and dxx = <dx,dy>; every
     gap is a small quantity computed from difference vectors."""
-    Xa0, dXa = Xa[:, :-1], Xa[:, 1:] - Xa[:, :-1]
-    Xb0, dXb = Xb[:, :-1], Xb[:, 1:] - Xb[:, :-1]
-    dna = bcast_a(-0.5 * torch.sum((Xa[:, 1:] + Xa[:, :-1]) * dXa, dim=-1))
-    dnb = bcast_b(-0.5 * torch.sum((Xb[:, 1:] + Xb[:, :-1]) * dXb, dim=-1))
+    Xa0, dXa = _start(Xa), _step(Xa)
+    Xb0, dXb = _start(Xb), _step(Xb)
+    dna = bcast_a(-0.5 * torch.sum((Xa[..., 1:, :] + Xa0) * dXa, dim=-1))
+    dnb = bcast_b(-0.5 * torch.sum((Xb[..., 1:, :] + Xb0) * dXb, dim=-1))
     na = bcast_a(-0.5 * torch.sum(torch.square(Xa0), dim=-1))
     nb = bcast_b(-0.5 * torch.sum(torch.square(Xb0), dim=-1))
 
@@ -154,25 +158,10 @@ def bracket_second_diff(A00, a01, a10, da, *, exp=exp_accurate,
     return torch.where(ok, ident, naive)
 
 
-def _rbf_increment_cross(Xa, Xb):
-    """(A, L1, d), (B, L2, d) -> (A, B, L1-1, L2-1) rbf increment Gram."""
-    return bracket_second_diff(*_rbf_gaps(
-        Xa, Xb, "asd,btd->abst",
-        lambda v: v[:, None, :, None], lambda v: v[None, :, None, :],
-    ))
-
-
-def _rbf_increment_pair(Xa, Xb):
-    """(N, La, d), (N, Lb, d) -> (N, La-1, Lb-1) per-example rbf increment
-    Grams."""
-    return bracket_second_diff(*_rbf_gaps(
-        Xa, Xb, "nsd,ntd->nst",
-        lambda v: v[:, :, None], lambda v: v[:, None, :],
-    ))
-
-
-def _rbf_increment_diag(X):
-    return _rbf_increment_pair(X, X)
+def _rbf_increment_core(Xa, Xb, spec, bcast_a, bcast_b):
+    """The rbf increment Gram: ``bracket_second_diff`` of the
+    ``_rbf_gaps`` geometry."""
+    return bracket_second_diff(*_rbf_gaps(Xa, Xb, spec, bcast_a, bcast_b))
 
 
 # ---------------------------------------------------------------------------
@@ -360,8 +349,7 @@ def _radius_gaps(Xa, Xb, spec, bcast_a, bcast_b):
     numerator exactly 0.  The norms' sqrt guard is a normal float of the
     dtype: 1e-40 is subnormal in f32, and sqrt's VJP through it blows up."""
     tiny_sq = 1e-40 if Xa.dtype == torch.float64 else 1e-36
-    dXa = Xa[:, 1:] - Xa[:, :-1]
-    dXb = Xb[:, 1:] - Xb[:, :-1]
+    dXa, dXb = _step(Xa), _step(Xb)
     ndx = bcast_a(torch.sqrt(_max(torch.sum(torch.square(dXa), dim=-1),
                                   tiny_sq)))
     ndy = bcast_b(torch.sqrt(_max(torch.sum(torch.square(dXb), dim=-1),
@@ -381,40 +369,349 @@ def _matern12_increment_core(Xa, Xb, spec, bcast_a, bcast_b):
         + _expm1_stable(-g01) * _expm1_stable(-g10))
 
 
-def _matern12_increment_cross(Xa, Xb):
-    """(A, L1, d), (B, L2, d) -> (A, B, L1-1, L2-1) matern12 increment
-    Gram."""
-    return _matern12_increment_core(
-        Xa, Xb, "asd,btd->abst",
-        lambda v: v[:, None, :, None], lambda v: v[None, :, None, :])
+# ---------------------------------------------------------------------------
+# matern32/52, cosine, mix, poly and spectral closed forms
+# ---------------------------------------------------------------------------
 
 
-def _matern12_increment_pair(Xa, Xb):
-    """(N, La, d), (N, Lb, d) -> (N, La-1, Lb-1) per-example matern12
-    increment Grams."""
-    return _matern12_increment_core(
-        Xa, Xb, "nsd,ntd->nst", lambda v: v[:, :, None],
-        lambda v: v[:, None, :])
+def _matern_poly_increment_core(Xa, Xb, spec, bcast_a, bcast_b, *, s,
+                                half: bool):
+    """Cancellation-free matern32/52 increment Gram
+    (``gpsig_tpu/ops/gram.py:434``).  Both are a polynomial P in the
+    distance times exp(-s r); with the corners at r00 + h, h in {0, g01,
+    g10, G = g01 + g10 + delta} (``_radius_gaps``), the second difference
+    factors through exp(-s r00) and each monomial of P(h) = c0 + c1 h +
+    c2 h^2 has its own expm1 factorization:
+
+        h^0: expm1(-s g01) expm1(-s g10) + e^{-s(g01+g10)} expm1(-s delta)
+        h^1: g01 e^{-s g01} expm1(-s(g10+delta))
+             + g10 e^{-s g10} expm1(-s(g01+delta)) + delta e^{-s G}
+        h^2: the same with g01^2, g10^2 and
+             (delta^2 + 2 g01 g10 + 2 delta (g01+g10)) e^{-s G}
+
+    so every term is a product of small gap quantities.  ``half``:
+    matern32 (P = 1 + s r), else matern52 (P = 1 + s r + s^2 r^2 / 3)."""
+    r00, g01, g10, delta = _radius_gaps(Xa, Xb, spec, bcast_a, bcast_b)
+    sg01, sg10, sdel = s * g01, s * g10, s * delta
+    e01, e10 = exp_accurate(-sg01), exp_accurate(-sg10)
+    eG = exp_accurate(-(sg01 + sg10 + sdel))
+    em_10d = _expm1_stable(-(sg10 + sdel))
+    em_01d = _expm1_stable(-(sg01 + sdel))
+    t0 = (_expm1_stable(-sg01) * _expm1_stable(-sg10)
+          + exp_accurate(-(sg01 + sg10)) * _expm1_stable(-sdel))
+    t1 = g01 * e01 * em_10d + g10 * e10 * em_01d + delta * eG
+    if half:
+        bracket = (1.0 + s * r00) * t0 + s * t1
+    else:
+        ss3 = s * s / 3.0
+        c0 = 1.0 + s * r00 + ss3 * torch.square(r00)
+        c1 = s + 2.0 * ss3 * r00
+        t2 = (torch.square(g01) * e01 * em_10d
+              + torch.square(g10) * e10 * em_01d
+              + (torch.square(delta) + 2.0 * g01 * g10
+                 + 2.0 * delta * (g01 + g10)) * eG)
+        bracket = c0 * t0 + c1 * t1 + ss3 * t2
+    return exp_accurate(-s * r00) * bracket
 
 
-def _matern12_increment_diag(X):
-    return _matern12_increment_pair(X, X)
+def _matern32_increment_core(Xa, Xb, spec, bcast_a, bcast_b):
+    return _matern_poly_increment_core(Xa, Xb, spec, bcast_a, bcast_b,
+                                       s=math.sqrt(3.0), half=True)
+
+
+def _matern52_increment_core(Xa, Xb, spec, bcast_a, bcast_b):
+    return _matern_poly_increment_core(Xa, Xb, spec, bcast_a, bcast_b,
+                                       s=math.sqrt(5.0), half=False)
+
+
+def _unit_steps(X):
+    """Unit-normalized observations and their cancellation-free steps:
+    cosine's second difference is the linear increment Gram of the unit
+    points, and
+
+        d(x_hat) = (|x| dx - x (|x'| - |x|)) / (|x| |x'|),
+        |x'| - |x| = <x' + x, dx> / (|x'| + |x|)
+
+    keeps every factor a small-quantity product (``gpsig_tpu/ops/gram.py:
+    123``).  Norm guards in the f32-normal range (1e-36)."""
+    n = torch.sqrt(torch.clamp(torch.sum(torch.square(X), dim=-1),
+                               min=1e-36))
+    X0, dX = _start(X), _step(X)
+    n0, n1 = n[..., :-1], n[..., 1:]
+    dn = torch.sum((X[..., 1:, :] + X0) * dX, dim=-1) / (n0 + n1)
+    dXh = (n0[..., None] * dX - X0 * dn[..., None]) / (n0 * n1)[..., None]
+    return X / n[..., None], dXh
+
+
+def _cosine_increment_core(Xa, Xb, spec, bcast_a, bcast_b):
+    """The cosine increment Gram (see ``_unit_steps``)."""
+    return torch.einsum(spec, _unit_steps(Xa)[1], _unit_steps(Xb)[1])
+
+
+def _core_variants(core):
+    """The variants of an increment core ``core(Xa, Xb, spec, bcast_a,
+    bcast_b)``, which differ only in the einsum subscripts and where the
+    per-side terms broadcast:
+
+    * cross: (A, L1, d), (B, L2, d) -> (A, B, L1-1, L2-1);
+    * diag: (N, L, d) -> (N, L-1, L-1), each example against itself;
+    * pair: (N, La, d), (N, Lb, d) -> (N, La-1, Lb-1), example by example;
+    * slots: (S, n, L, d) -> (S, n, n, L-1, L-1), the cross Gram of each
+      of S sets against itself in one batched call (the Kzz slots of
+      inducing tensors; JAX maps the cross Gram over them)."""
+
+    def cross(Xa, Xb):
+        return core(Xa, Xb, "asd,btd->abst", lambda v: v[:, None, :, None],
+                    lambda v: v[None, :, None, :])
+
+    def pair(Xa, Xb):
+        return core(Xa, Xb, "nsd,ntd->nst", lambda v: v[:, :, None],
+                    lambda v: v[:, None, :])
+
+    def diag(X):
+        return pair(X, X)
+
+    def slots(Z):
+        return core(Z, Z, "kasd,kbtd->kabst",
+                    lambda v: v[:, :, None, :, None],
+                    lambda v: v[:, None, :, None, :])
+
+    return cross, diag, pair, slots
 
 
 INCREMENT_GRAMS = {
-    "linear": (_linear_increment_cross, _linear_increment_diag,
-               _linear_increment_pair),
-    "rbf": (_rbf_increment_cross, _rbf_increment_diag, _rbf_increment_pair),
-    "matern12": (_matern12_increment_cross, _matern12_increment_diag,
-                 _matern12_increment_pair),
+    "linear": _core_variants(_linear_increment_core),
+    "rbf": _core_variants(_rbf_increment_core),
+    "matern12": _core_variants(_matern12_increment_core),
+    "matern32": _core_variants(_matern32_increment_core),
+    "matern52": _core_variants(_matern52_increment_core),
+    "cosine": _core_variants(_cosine_increment_core),
 }
 
 
-def increment_gram_fns(base: str):
-    """(cross_fn, diag_fn) closed-form increment Grams for ``base``, or
-    (None, None) where the port has none."""
+def _mix_increment_maker(params):
+    """mix = mixing rbf + (1 - mixing) linear is linear in the base Gram,
+    so its increment Gram is that convex combination of the two closed
+    forms."""
+    mixing = params["mixing"]
+
+    def core(Xa, Xb, spec, bcast_a, bcast_b):
+        rbf_part = _rbf_increment_core(Xa, Xb, spec, bcast_a, bcast_b)
+        lin = _linear_increment_core(Xa, Xb, spec, bcast_a, bcast_b)
+        return mixing * rbf_part + (1.0 - mixing) * lin
+
+    return _core_variants(core)
+
+
+_POLY_MAX_DEGREE = 16
+
+
+def _poly_increment_maker(params):
+    """Cancellation-free poly ((<x,y> + gamma)^p) increment Gram
+    (``gpsig_tpu/ops/gram.py:609``): with corner inner products I00 + {0,
+    h01, h10, h01 + h10 + dl}, the second difference expands binomially
+    around c = I00 + gamma,
+
+        D = sum_{k=1..p} C(p,k) c^{p-k} S_k,
+        S_k = sum_{a+b+e=k} k!/(a! b! e!) h01^a h10^b dl^e
+              without the (k,0,0) and (0,k,0) monomials,
+
+    every surviving monomial a product of >= 2 small factors.  Needs a
+    static integer degree in [1, 16]; otherwise None (naive differencing,
+    exact at f64)."""
+    degree = params.get("poly_degree")
+    if degree is None:
+        return None
+    try:
+        p = float(degree)
+    except (TypeError, ValueError, RuntimeError):
+        return None
+    if not p.is_integer() or not (1 <= p <= _POLY_MAX_DEGREE):
+        return None
+    p = int(p)
+    gamma = params["poly_gamma"]
+
+    def core(Xa, Xb, spec, bcast_a, bcast_b):
+        Xa0, dXa = _start(Xa), _step(Xa)
+        Xb0, dXb = _start(Xb), _step(Xb)
+
+        def mm(A, B):
+            return torch.einsum(spec, A, B)
+
+        c = mm(Xa0, Xb0) + gamma
+        h01, h10, dl = mm(Xa0, dXb), mm(dXa, Xb0), mm(dXa, dXb)
+        out = None
+        for k in range(1, p + 1):
+            Sk = None
+            for a in range(k + 1):
+                for b in range(k + 1 - a):
+                    e = k - a - b
+                    if (a == k and b == 0) or (b == k and a == 0):
+                        continue
+                    coef = (math.factorial(k)
+                            // (math.factorial(a) * math.factorial(b)
+                                * math.factorial(e)))
+                    term = float(coef) * (h01 ** a) * (h10 ** b) * (dl ** e)
+                    Sk = term if Sk is None else Sk + term
+            term = float(math.comb(p, k)) * c ** (p - k) * Sk
+            out = term if out is None else out + term
+        return out
+
+    return _core_variants(core)
+
+
+def _cexpm1(a, b):
+    """Relatively accurate complex ``exp(a + ib) - 1`` as (re, im):
+    ``re = expm1(a) cos(b) - 2 sin(b/2)^2``, ``im = exp(a) sin(b)``."""
+    re = _expm1_stable(a) * torch.cos(b) - 2.0 * torch.square(
+        torch.sin(0.5 * b))
+    return re, exp_accurate(a) * torch.sin(b)
+
+
+def _spectral_component(Xa, Xb, spec, bcast_a, bcast_b, alpha_q, omega_q,
+                        gamma_q, exp_family: bool):
+    """One mixture component ``alpha_q Re exp(A_q + i B_q)`` of the
+    spectral increment Gram (``gpsig_tpu/ops/gram.py:680``): the complex
+    matern12 factorization over the rbf (``_rbf_gaps``) or half-radius
+    (``_radius_gaps``) envelope gaps of the gamma_q-scaled inputs, and the
+    single-step phases of the separable B (its second difference is 0).
+    Regime-split per entry like ``bracket_second_diff``: the identity where
+    its two group magnitudes stay within 4 M, the corner scale, else the
+    naive corner sum with exponents clipped <= 0; the selector carries no
+    gradient."""
+    two_pi = 2.0 * math.pi
+    Xaq, Xbq = Xa * gamma_q, Xb * gamma_q
+    if exp_family:
+        r00, g01, g10, dlt = _radius_gaps(Xaq, Xbq, spec, bcast_a, bcast_b)
+        A00, a01, a10, da = -0.5 * r00, -0.5 * g01, -0.5 * g10, -0.5 * dlt
+    else:
+        A00, a01, a10, da = _rbf_gaps(Xaq, Xbq, spec, bcast_a, bcast_b)
+    B00 = (bcast_a(two_pi * torch.matmul(_start(Xa), omega_q))
+           - bcast_b(two_pi * torch.matmul(_start(Xb), omega_q)))
+    b01 = bcast_b(-two_pi * torch.matmul(_step(Xb), omega_q))
+    b10 = bcast_a(two_pi * torch.matmul(_step(Xa), omega_q))
+    c = _EXP_CLIP
+    a01s = torch.clamp(a01, -c, c)
+    a10s = torch.clamp(a10, -c, c)
+    das = torch.clamp(da, -c, c)
+    eA = exp_accurate(A00)
+    e01re, e01im = _cexpm1(a01s, b01)
+    e10re, e10im = _cexpm1(a10s, b10)
+    Zre = eA * (e01re * e10re - e01im * e10im)
+    Zim = eA * (e01re * e10im + e01im * e10re)
+    # + e^{A00+a01+a10} expm1(delta), delta real; the exponent is summed
+    # before exp
+    es = exp_accurate(A00 + a01s + a10s) * _expm1_stable(das)
+    bsum = b01 + b10
+    Zre = Zre + es * torch.cos(bsum)
+    Zim = Zim + es * torch.sin(bsum)
+    ident = torch.cos(B00) * Zre - torch.sin(B00) * Zim
+
+    t1 = torch.sqrt((e01re * e01re + e01im * e01im)
+                    * (e10re * e10re + e10im * e10im))
+    t2 = exp_accurate(torch.clamp(a01s + a10s, max=c)) * torch.abs(
+        _expm1_stable(das))
+    Mcs = torch.clamp(
+        torch.maximum(
+            exp_accurate(torch.clamp(torch.maximum(a01, a10), max=c)),
+            exp_accurate(torch.clamp(a01 + a10 + da, max=c)),
+        ),
+        min=1.0,
+    )
+    ok = ((torch.maximum(t1, t2) <= 4.0 * Mcs)
+          & (torch.abs(a01) < c) & (torch.abs(a10) < c)
+          & (torch.abs(da) < c)).detach()
+
+    def corner(t, ph):
+        return exp_accurate(torch.clamp(t, max=0.0)) * torch.cos(B00 + ph)
+
+    naive = (corner(A00 + a01 + a10 + da, bsum)
+             - corner(A00 + a01, b01) - corner(A00 + a10, b10)
+             + eA * torch.cos(B00))
+    return alpha_q * torch.where(ok, ident, naive)
+
+
+def _spectral_increment_maker(family: str):
+    """Maker of the spectral increment Grams over the constrained mixture
+    (``alpha`` (Q,), ``omega`` and ``spec_gamma`` (Q, d)); 'mixed' splits
+    the components rbf / exp at Q//2 as ``base_kernels.spectral``.  The
+    components are summed one after the other, in JAX's order.
+
+    Under autograd each component is recomputed in the backward pass
+    (``torch.utils.checkpoint``) instead of holding its temporaries: they
+    take ~900 bytes an entry at float32, ~20 GB a component at the
+    benchmark's Kzx slot Grams (5,000 slots x 50 examples x 92 steps), so
+    Q = 5 would hold ~100 GB.  The recomputation gives the same numbers."""
+
+    def maker(params):
+        alpha, omega, gamma = (params["alpha"], params["omega"],
+                               params["spec_gamma"])
+        Q = alpha.shape[0]
+        split = Q // 2 if family == "mixed" else (0 if family == "exp" else Q)
+
+        def core(Xa, Xb, spec, bcast_a, bcast_b):
+            parts = []
+            for lo, hi, exp_family in ((0, split, False), (split, Q, True)):
+                out = None
+                for q in range(lo, hi):
+                    args = (Xa, Xb, spec, bcast_a, bcast_b, alpha[q],
+                            omega[q], gamma[q], exp_family)
+                    t = (checkpoint(_spectral_component, *args,
+                                    use_reentrant=False)
+                         if torch.is_grad_enabled()
+                         else _spectral_component(*args))
+                    out = t if out is None else out + t
+                if out is not None:
+                    parts.append(out)
+            return parts[0] if len(parts) == 1 else parts[0] + parts[1]
+
+        return _core_variants(core)
+
+    return maker
+
+
+# the closed forms that need the kernel's constrained parameters (mixing
+# weight, poly gamma and degree, spectral mixture)
+PARAM_INCREMENT_GRAMS = {
+    "mix": _mix_increment_maker,
+    "poly": _poly_increment_maker,
+    "spectral_rbf": _spectral_increment_maker("rbf"),
+    "spectral_exp": _spectral_increment_maker("exp"),
+    "spectral_mixed": _spectral_increment_maker("mixed"),
+}
+
+
+def _resolve_increment_grams(base: str, params):
     fns = INCREMENT_GRAMS.get(base)
+    if fns is not None:
+        return fns
+    maker = PARAM_INCREMENT_GRAMS.get(base)
+    if maker is not None and params is not None:
+        return maker(params)
+    return None
+
+
+def increment_gram_fns(base: str, params=None):
+    """(cross_fn, diag_fn) closed-form increment Grams for ``base``, or
+    (None, None) without one (callers then take the naive second
+    difference, exact at f64).  ``params`` (constrained and static)
+    unlocks mix, integer-degree poly and the spectral families."""
+    fns = _resolve_increment_grams(base, params)
     return (fns[0], fns[1]) if fns else (None, None)
+
+
+def increment_gram_pair_fn(base: str, params=None):
+    """Per-example two-view increment Gram ``f(Xa, Xb) -> (N, La-1,
+    Lb-1)`` for ``base``, or None without a closed form."""
+    fns = _resolve_increment_grams(base, params)
+    return fns[2] if fns else None
+
+
+def increment_gram_slots_fn(base: str, params=None):
+    """Slot-batched cross increment Gram ``f(Z) -> (S, n, n, L-1, L-1)``
+    of (S, n, L, d) sets for ``base``, or None without a closed form."""
+    fns = _resolve_increment_grams(base, params)
+    return fns[3] if fns else None
 
 
 def level1_exact_cross(increment_fn, X, X2):
@@ -482,6 +779,116 @@ def higher_order_levels_batched(M, num_levels: int, order: int, *,
         K.append(torch.sum(sum(R.values()), dim=(-2, -1)).reshape(
             batch_shape))
     return torch.stack(K, dim=0)
+
+
+def _levels(G, num_levels: int, order: int, difference: bool):
+    """The level stack of a batch of Grams at ``order``."""
+    if order == 1:
+        return first_order_levels_batched(G, num_levels,
+                                          difference=difference)
+    return higher_order_levels_batched(G, num_levels, order,
+                                       difference=difference)
+
+
+def _with_level1(K, level1):
+    """``K`` with its level 1 replaced (out of place, for autograd)."""
+    return torch.cat([K[:1], level1[None], K[2:]], dim=0)
+
+
+def _pad_examples(X, block: int):
+    """X padded with zero examples to whole blocks, and the block count."""
+    N = X.shape[0]
+    n_blocks = -(-N // block)
+    pad = n_blocks * block - N
+    if pad:
+        X = torch.cat([X, X.new_zeros((pad,) + tuple(X.shape[1:]))], dim=0)
+    return X, n_blocks
+
+
+def blocked_first_order_levels(base_kern, X, X2=None, *, num_levels: int,
+                               order: int = 1, difference: bool = True,
+                               block_size: int = 16, increment_fn=None):
+    """(M+1, N1, N2) per-level seq x seq kernels over (block, block)
+    example tiles, so that the peak intermediate is a (block, L1, block,
+    L2) Gram whatever N (``gpsig_tpu/ops/gram.py:990``), at any order.
+
+    Args:
+      base_kern: ``k(A, B) -> Gram`` over flat observation matrices.
+      X: ``(N1, L1, d)`` scaled sequences; X2: ``(N2, L2, d)`` or None.
+      block_size: examples a tile on each side, at most that side's count
+        (a side of 50 is not padded to a block of 300).
+      increment_fn: optional cancellation-free ``f(Xi, Xj) -> (B, B, L1-1,
+        L2-1)`` (``increment_gram_fns``), used with ``difference``; level 1
+        is then the exact telescoped one (``level1_exact_cross``).
+    """
+    if X2 is None:
+        X2 = X
+    N1, L1, d = X.shape
+    N2, L2, _ = X2.shape
+    B1, B2 = min(block_size, N1), min(block_size, N2)
+    Xp, nb1 = _pad_examples(X, B1)
+    X2p, nb2 = _pad_examples(X2, B2)
+    use_inc = difference and increment_fn is not None
+    rows = []
+    for i in range(nb1):
+        Xi = Xp[i * B1:(i + 1) * B1]
+        tiles = []
+        for j in range(nb2):
+            Xj = X2p[j * B2:(j + 1) * B2]
+            if use_inc:
+                G = increment_fn(Xi, Xj)  # pre-differenced
+            else:
+                G = base_kern(Xi.reshape(B1 * L1, d), Xj.reshape(
+                    B2 * L2, d)).reshape(B1, L1, B2, L2)
+                G = G.permute(0, 2, 1, 3)  # (B1, B2, L1, L2)
+            tiles.append(_levels(G, num_levels, order,
+                                 difference and not use_inc))
+        rows.append(torch.cat(tiles, dim=-1))
+    K = torch.cat(rows, dim=-2)[:, :N1, :N2]
+    if use_inc:
+        K = _with_level1(K, level1_exact_cross(increment_fn, X, X2))
+    return K
+
+
+def blocked_first_order_levels_diag(base_kern, X, *, num_levels: int,
+                                    order: int = 1, difference: bool = True,
+                                    block_size: int = 64,
+                                    increment_diag_fn=None):
+    """(M+1, N) per-level diagonals, blocked over examples
+    (``gpsig_tpu/ops/gram.py:1056``)."""
+    N = X.shape[0]
+    B = min(block_size, N)
+    Xp, nb = _pad_examples(X, B)
+    use_inc = difference and increment_diag_fn is not None
+    tiles = []
+    for i in range(nb):
+        Xi = Xp[i * B:(i + 1) * B]
+        G = increment_diag_fn(Xi) if use_inc else base_kern(Xi)
+        tiles.append(_levels(G, num_levels, order,
+                             difference and not use_inc))
+    K = torch.cat(tiles, dim=-1)[:, :N]
+    if use_inc:
+        K = _with_level1(K, level1_exact_diag(increment_diag_fn, X))
+    return K
+
+
+def tens_closed_form_ok(base: str) -> bool:
+    """Whether the closed forms serve the Kzz slot Grams of incremental
+    inducing tensors.  Not for the spectral family: learned inducing
+    increments drift to pair geometry where the oscillatory kernel leaves
+    nothing to cancel and the quotient algebra only adds conditioning
+    error (JAX measured 80x the naive graph's error against f64,
+    ``gpsig_tpu/ops/gram.py:1104``), so spectral Kzz keeps the naive
+    graph."""
+    return not base.startswith("spectral")
+
+
+def tens_slot_grams(slots_fn, Z):
+    """(lt, nZ, nZ) cancellation-free Kzz slot Grams of incremental
+    inducing tensors Z (lt, nZ, 2, d): each slot pair is a 2-point path,
+    so each slot's Gram is the cross increment Gram of its pairs, all slots
+    in one batched call of ``slots_fn`` (``increment_gram_slots_fn``)."""
+    return slots_fn(Z)[..., 0, 0]
 
 
 def tens_vs_seq_slot_grams(increment_fn, Z, X):

@@ -21,6 +21,8 @@ Predictor was given.  ``export_predict`` / ``save_exported`` /
 
 from __future__ import annotations
 
+import copy
+
 import torch
 
 from . import config as cfg
@@ -55,8 +57,11 @@ class Predictor:
     """Bucketed predictor over an SVGP model on one explicit device.
 
     Args:
-      model: a ``gpsig_tpu_torch.SVGP``; it is moved to ``device`` and
-        ``dtype`` (in place, as ``nn.Module.to`` does) and put in eval mode.
+      model: a ``gpsig_tpu_torch.SVGP``.  The Predictor answers from a
+        copy of it, taken at construction, on ``device`` at ``dtype`` and
+        in eval mode; the caller's module keeps its dtype, device, mode and
+        parameter storage, and later changes to it do not reach the
+        Predictor (as JAX's answers from the parameters it was given).
       max_len: shorthand for ``len_buckets=(max_len,)``.
       len_buckets: ascending padded sequence lengths.
       batch_buckets: ascending padded batch sizes.
@@ -74,7 +79,8 @@ class Predictor:
             len_buckets = (max_len,)
         self.device = torch.device(device or cfg.default_device())
         self.dtype = dtype or next(model.parameters()).dtype
-        self.model = model.to(device=self.device, dtype=self.dtype).eval()
+        self.model = copy.deepcopy(model).to(device=self.device,
+                                             dtype=self.dtype).eval()
         self.len_buckets = tuple(sorted(int(x) for x in len_buckets))
         self.max_len = self.len_buckets[-1]
         self.batch_buckets = tuple(sorted(int(b) for b in batch_buckets))

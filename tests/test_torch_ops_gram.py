@@ -68,4 +68,9 @@ def test_increment_grams_and_level1(base, dtype):
 
 
 def test_unsupported_base_has_no_closed_form():
-    assert tgram.increment_gram_fns("cosine") == (None, None)
+    """Every base has a closed form now; those of poly and the spectral
+    family need the constrained parameters, and without them there is
+    none, as in JAX."""
+    for base in ("poly", "spectral_rbf", "mix"):
+        assert tgram.increment_gram_fns(base) == (None, None)
+        assert jgram.increment_gram_fns(base) == (None, None)

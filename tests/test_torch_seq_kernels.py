@@ -120,9 +120,8 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="no seq x seq kernel"):
         sc.seq_fwd(V, V, V, V, num_levels=M_LVL, base="cosine",
                    difference=True)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        SignatureKernel(2, M_LVL, base="matern32", device="cpu").K(
-            torch.zeros(2, 4, 2))
+    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
+        SignatureKernel(2, M_LVL, low_rank=True, device="cpu")
     meta = torch.zeros(3, 5, 4, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         sc.seq_fwd(meta, meta, meta, meta, num_levels=M_LVL, base="rbf",

@@ -106,13 +106,18 @@ def test_fused_auto_matches_off_and_on_raises_on_cpu():
 
 
 def test_outside_the_slice_raises():
+    """Every base and ``K_blocked`` are ported now; the paths still outside
+    the port name their ROADMAP item: low-rank features (the kernel and
+    the recipe's option) and mean functions."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.kernels.SignatureKernel(D, M, base="matern32", device="cpu")
+        T.recipes.train_gpsig_classifier("SyntheticLibras", low_rank=True,
+                                         device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.kernels.SignatureRBF(D, M, low_rank=True)
-    _, _, tmodel, Xq = _setup(np.float64)
+    _, _, tmodel, _ = _setup(np.float64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.kern.K_blocked(torch.from_numpy(Xq))
+        T.SVGP(tmodel.kern, tmodel.ind, tmodel.likelihood, num_latent=C,
+               mean_function=object(), device="cpu")
 
 
 def test_converter_round_trip():
