@@ -149,17 +149,44 @@ and prints no result line):
    and its ``predict_f(full_cov=True)`` held as phase 3; (11d) no kernel
    launched in 11a-11c (every counter at 0), and a ``fused='on'`` twin of
    each model raising on CUDA tensors; (11e, after phase 10e) each
-   model's request latency (median of 5 a bucket), and for the trained
-   ones training steps/s (median of 5 steps) with a profile of one step
+   model's request latency (median of 3 a bucket), and for the trained
+   ones training steps/s (median of 3 steps) with a profile of one step
    and the device work of each covariance leg (Kzz, Kzx, Kxx's diagonal);
+12. low-rank features (``SignatureRBF(low_rank=True)``: Nystrom features
+   and randomized Hadamard products, torch ops, as the JAX package runs
+   them through XLA) and the rest of the model API: (12a) the low-rank
+   tensors model at the benchmark width (500 incremental inducing
+   tensors, C=10, with ``num_components=100, rank_bound=200``: the
+   defaults' rank, 201, is below 500 and makes Kzz singular) served on
+   the six buckets, two calls with generators seeded alike giving
+   bit-identical Grams, trained 30 steps under the phase-2 mask, K1-K6 at
+   0; (12b) before it trains, levels 0 and 1 of its Kzz, Kzx and full
+   Kxx against its f64 path on the same draws (within 1e-3 of their
+   scale: those levels do not depend on an eigenvector's sign), and a
+   model with exact features (8 components, M=3, 100 inducing tensors)
+   held as phases 3 and 5 hold theirs; (12c) the recipe with
+   ``low_rank=True`` (num_lags=1, 150 inducing tensors, epochs_cap=1) on
+   phase 8's data, C=10 and C=2; (12d) the configuration of
+   ``examples/low_rank_long_sequences.py`` (10,000 random walks of 1,000
+   steps, d=3, M=3, 96 components, rank bound 128, in 4 chunks sharing
+   every draw): factor time, implied Gram entries/s, and the normalized
+   low-rank Gram of 256 walks against the exact one from K5
+   (``K_blocked(method='pallas')``), max and mean error read; (12e) a
+   Gaussian regression model (500 incremental inducing tensors, K1-K4, a
+   ``Linear`` mean function, trainable noise) served, every leaf's
+   gradient held against f64, trained 30 steps, and ``predict_f_samples``
+   (S = 4,096) within 5 standard errors of ``predict_f``'s moments, with
+   and without ``full_cov``; (12f, after phase 11e) the 12a and 12e
+   models' request latency and training steps/s as phase 11e times them;
 4. times: the six kernels against their plain versions with CUDA events,
    interleaved plain / kernel / kernel / plain (K1 and K2 in both modes
    with both bounds, each unordered pair counted once and every ordered
    pair; K3 at N = 1, 8, 32 and 50, K5 and K6 also at the N=50, L=315 full
    Kxx, K1-K6 at 9 and 17 levels once; K1, K2 and K3 at N = 1 and 8 also
-   from a CUDA graph, the launch alone); request latency per bucket and
-   training steps/s (median of 20 synchronized steps after 5 warm-up
-   steps) with a ``torch.profiler`` breakdown of a step, for both models;
+   from a CUDA graph, the launch alone); request latency per bucket
+   (median of 5) and training steps/s (median of 10 synchronized steps
+   after 3 warm-up steps) with a ``torch.profiler`` breakdown of two
+   steps, for both models (9f and 10e: median of 5 steps, one profiled);
    (4e) K1-K6 at the lagged width at phase 2h's shapes, and the lagged
    tensors model's training steps/s and profile.
 
@@ -173,7 +200,9 @@ order 4; the last line is ``{"ok": true,
 phase 4a alone, printing its rows as one JSON line: a copy of the script
 in another checkout times that checkout's kernels, so two trees can be
 compared in one call.  ``python3 chip_smoke.py --bases`` runs phase 11
-alone (it builds nothing), its details in ``build/chip_smoke_bases.json``.
+alone (it builds nothing), its details in ``build/chip_smoke_bases.json``;
+``python3 chip_smoke.py --low-rank`` builds the main library and runs
+phase 12 alone, its details in ``build/chip_smoke_low_rank.json``.
 """
 
 from __future__ import annotations
@@ -954,13 +983,17 @@ def time_extra_levels(ic, sc):
 
 
 def drive_serving(T, model, ref, X, expect, same_bucket=False,
-                  ref_device="cpu"):
+                  ref_device="cpu", len_buckets=LEN_BUCKETS,
+                  regression=False):
     """Phase 3: the serving path through its public entry points; the
     kernels in ``expect`` must launch during the requests.  The f64
     reference (on the CPU, or ``ref_device``) answers each request
     unpadded, or, with ``same_bucket`` (lags: padding changes the lagged
-    features), through a Predictor with the same buckets."""
-    pred = T.serving.Predictor(model, len_buckets=LEN_BUCKETS,
+    features), through a Predictor with the same buckets; None (a low-rank
+    model: its f32 and f64 draws differ, phase 12b holds its accuracy)
+    answers none.  ``regression`` (a Gaussian likelihood): the means are
+    held to the reference relative to their scale, with no classes."""
+    pred = T.serving.Predictor(model, len_buckets=len_buckets,
                                batch_buckets=BATCH_BUCKETS, device="cuda")
     pred.warmup(D)
     torch.cuda.synchronize()
@@ -974,9 +1007,11 @@ def drive_serving(T, model, ref, X, expect, same_bucket=False,
     for name in expect:
         check(launches[name] > 0, f"{name} was not launched on the serving "
               "path")
-    if same_bucket:
+    if ref is None:
+        ref_fn = None
+    elif same_bucket:
         ref_fn = T.serving.Predictor(
-            ref, len_buckets=LEN_BUCKETS, batch_buckets=BATCH_BUCKETS,
+            ref, len_buckets=len_buckets, batch_buckets=BATCH_BUCKETS,
             device=ref_device, dtype=torch.float64).predict_y
     else:
         def ref_fn(r):
@@ -991,8 +1026,24 @@ def drive_serving(T, model, ref, X, expect, same_bucket=False,
               f"request ({n}, {l}): output shapes {mean.shape}, {var.shape}")
         check(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()),
               f"request ({n}, {l}): non-finite output")
+        if ref_fn is None:
+            row_err = (float((mean.sum(1) - 1.0).abs().max()) if P > 1
+                       else 0.0)
+            check(row_err <= MEAN_BOUND, f"request ({n}, {l}): rows sum off "
+                  f"by {row_err}")
+            print(f"  request (n={n}, l={l}): row-sum err={row_err:.3e}")
+            rows.append(dict(n=n, l=l, row_sum_err=row_err))
+            continue
         ref_mean = ref_fn(r)[0].cpu()
         err = float((mean - ref_mean).abs().max())
+        if regression:
+            err /= max(float(ref_mean.abs().max()), 1.0)
+            print(f"  request (n={n}, l={l}): |mean - f64| / scale="
+                  f"{err:.3e}")
+            check(err <= MEAN_BOUND, f"request ({n}, {l}): means off the "
+                  f"f64 path by {err}")
+            rows.append(dict(n=n, l=l, rel_err_vs_f64=err))
+            continue
         if P > 1:
             row_err = float((mean.sum(1) - 1.0).abs().max())
             check(row_err <= MEAN_BOUND, f"request ({n}, {l}): rows sum off "
@@ -1015,10 +1066,10 @@ def drive_serving(T, model, ref, X, expect, same_bucket=False,
     return pred, launches, rows
 
 
-def leaf_grads(T, model, X, Y):
+def leaf_grads(T, model, X, Y, generator=None):
     """Loss and every leaf's gradient (f64, on the CPU) on one batch."""
     model.zero_grad(set_to_none=True)
-    loss = model.loss(X, Y)
+    loss = model.loss(X, Y, generator=generator)
     loss.backward()
     grads = {name: p.grad.detach().double().cpu()
              for name, p in T.convert.named_leaves(model).items()}
@@ -1027,14 +1078,16 @@ def leaf_grads(T, model, X, Y):
 
 
 def gradient_check(T, model, ref, build, X, y, plain_floor=False,
-                   ref_device="cpu"):
+                   ref_device="cpu", draws=None):
     """Phase 5a: on the first minibatch, every leaf's gradient on the card
     (the kernels) against the port's f64 CPU path (the plain versions); the
     f32 plain PyTorch path on the card (``fused='off'``) is measured beside
     it.  ``plain_floor`` (matern12): a leaf that misses its bound where the
     f32 plain path misses it too is held to no worse than that path.
     ``ref_device``: where the f64 path runs (the CPU, or the card for the
-    bases without a kernel, whose f64 path is torch ops there too)."""
+    bases without a kernel, whose f64 path is torch ops there too).
+    ``draws``: a low-rank model's draws (float32), given to all three
+    (cast to float64 for the reference)."""
     idx = next(T.training.MinibatchStream(N_TRAIN, BATCH, seed_or_rng=SEED))
     xb, yb = X[idx], y[idx, None].astype(np.float32)
 
@@ -1042,10 +1095,11 @@ def gradient_check(T, model, ref, build, X, y, plain_floor=False,
         return (torch.as_tensor(xb, dtype=dtype, device=device),
                 torch.as_tensor(yb, dtype=dtype, device=device))
 
-    loss_k, g_k = leaf_grads(T, model, *on("cuda", torch.float32))
-    loss_r, g_r = leaf_grads(T, ref, *on(ref_device, torch.float64))
+    d64 = None if draws is None else draws.to(ref_device, torch.float64)
+    loss_k, g_k = leaf_grads(T, model, *on("cuda", torch.float32), draws)
+    loss_r, g_r = leaf_grads(T, ref, *on(ref_device, torch.float64), d64)
     off = build(torch.float32, "off", "cuda")
-    loss_o, g_o = leaf_grads(T, off, *on("cuda", torch.float32))
+    loss_o, g_o = leaf_grads(T, off, *on("cuda", torch.float32), draws)
     del off
     top = max(float(g.norm()) for g in g_r.values())
     # kern/sigma's gradient is sum_m variances_m dL/dw_m (w_m = sigma
@@ -1322,11 +1376,11 @@ def time_kernels(ic, ut, X):
     return rows
 
 
-def time_requests(pred, X, reps=10, warm=2):
+def time_requests(pred, X, reps=10, warm=2, len_buckets=LEN_BUCKETS):
     """Phase 4b: request latency per bucket, host clock around a
     synchronized predict_y, median of ``reps`` warmed calls."""
     rows = []
-    for lb in LEN_BUCKETS:
+    for lb in len_buckets:
         for b in BATCH_BUCKETS:
             Xq = X[:b, :lb]
             for _ in range(warm):
@@ -1623,22 +1677,25 @@ def write_recipe_data(path, classes: int, seed: int) -> None:
                    "X_test": X_test, "y_test": y_test})
 
 
-def drive_recipe(T, tmp: Path, classes: int) -> dict:
+def drive_recipe(T, tmp: Path, classes: int, low_rank: bool = False,
+                 num_inducing: int = N_IND) -> dict:
     """Phase 8a: ``recipes.train_gpsig_classifier`` on the card with
     num_lags=1, 500 inducing tensors, M=4, val_split=0.2, epochs_cap=1 (32
     steps a phase) on data written here: all four phases run (the history
     on disk holds a record at the end of each), every phase's checkpoint is
     written, K1-K4 launch, the results are finite and the test accuracy is
-    above chance."""
-    name = f"Lagged{classes}"
+    above chance.  Phase 12c: ``low_rank`` with ``num_inducing`` inducing
+    tensors, no kernel launched."""
+    name = f"{'LowRank' if low_rank else 'Lagged'}{classes}"
     write_recipe_data(str(tmp / f"{name}.mat"), classes, SEED + classes)
     reset_counts()
     t0 = time.perf_counter()
     res = T.recipes.train_gpsig_classifier(
-        name, num_levels=LEVELS, num_inducing=N_IND, minibatch_size=BATCH,
+        name, num_levels=LEVELS, num_inducing=num_inducing,
+        minibatch_size=BATCH,
         num_lags=LAGS, val_split=0.2, epochs_cap=1, data_dir=str(tmp),
         save_dir=str(tmp / "out"), checkpoint_dir=str(tmp / "ckpt"),
-        seed=SEED, device="cuda")
+        low_rank=low_rank, seed=SEED, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -1658,7 +1715,10 @@ def drive_recipe(T, tmp: Path, classes: int) -> dict:
           f"recipe C={classes}: non-finite results {res}")
     check(res["test_acc"] > 1.0 / classes,
           f"recipe C={classes}: test accuracy {res['test_acc']} at chance")
-    for k in ("kzz_fwd", "kzx_fwd", "kzz_bwd", "kzx_bwd"):
+    if low_rank:
+        check_no_launch(launches, "the low-rank recipe")
+    for k in () if low_rank else ("kzz_fwd", "kzx_fwd", "kzz_bwd",
+                                  "kzx_bwd"):
         check(launches[k] > 0, f"recipe: {k} was not launched")
     return dict(classes=classes, results=res, wall_s=wall, records=iters,
                 launches=launches)
@@ -2312,8 +2372,8 @@ def serve_and_train_bases(T, ut, X, y) -> dict:
 
 def time_bases(T, X, y, models, card, serve_train_s) -> dict:
     """Phase 11e: each phase-11 model's request latency per bucket (median
-    of 5 after 1 warm-up call), and for the trained ones training steps/s
-    (median of 5 after 2 warm-up steps) with a profile of one step and the
+    of 3 after 1 warm-up call), and for the trained ones training steps/s
+    (median of 3 after 1 warm-up step) with a profile of one step and the
     device work of each covariance leg: shallower than phase 4, so that
     the script keeps within its time limit (the spectral step takes ~1.5 s
     and dispatches ~35,000 launches)."""
@@ -2322,11 +2382,11 @@ def time_bases(T, X, y, models, card, serve_train_s) -> dict:
     out = {}
     for name, (model, pred, res) in models.items():
         print(f"  {name} [{time.perf_counter() - T0:.1f} s]:", flush=True)
-        res = dict(res, request_latency=time_requests(pred, X, reps=5,
+        res = dict(res, request_latency=time_requests(pred, X, reps=3,
                                                        warm=1))
         if "training" in res:
-            res["training_time"] = time_training(T, model, X, y, reps=5,
-                                                 warm=2, profiled=1)
+            res["training_time"] = time_training(T, model, X, y, reps=3,
+                                                 warm=1, profiled=1)
             res["legs"] = leg_device_ms(model, X)
         out[name] = res
     out["seconds"] = dict(serve_and_train=serve_train_s,
@@ -2340,6 +2400,405 @@ def run_phase11(T, ut, X, y, card) -> dict:
     t0 = time.perf_counter()
     models = serve_and_train_bases(T, ut, X, y)
     return time_bases(T, X, y, models, card, time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: low-rank features (Nystrom features and randomized Hadamard
+# products, ops/low_rank.py: torch ops, as the JAX package runs them through
+# XLA) and the rest of the model API (Gaussian regression with a mean
+# function, predict_f_samples)
+# ---------------------------------------------------------------------------
+
+# 12a: the recipe's defaults (num_components = rank_bound = 50) give
+# features of rank <= 1 + 50 + 3 * 50 = 201, below 500 inducing tensors:
+# Kzz is singular up to its jitter and JAX's float32 loss is NaN there.
+# Only these two are raised from the defaults, so the rank (<= 701) passes
+# 500.
+LOW_RANK = dict(low_rank=True, num_components=100, rank_bound=200)
+# 12b: exact features (no projection, so no eigenvector sign enters a
+# Gram) of 8 components: 8, 64 and 512 features at levels 1-3
+EXACT_LEVELS, EXACT_COMPONENTS, EXACT_IND = 3, 8, 100
+LR_RECIPE_IND = 150  # 12c: fits the recipe's default rank, 201
+# 12d: examples/low_rank_long_sequences.py's configuration
+LONG_N, LONG_L, LONG_D, LONG_M = 10_000, 1_000, 3, 3
+LONG_C, LONG_RB, LONG_CHUNKS, LONG_BLOCK = 96, 128, 4, 256
+SAMPLES, SAMPLE_SE = 4096, 5.0  # 12e: predict_f_samples' moments
+
+
+def lr_draws(model, X, seed):
+    """A low-rank model's draws (float32, on the card) for its covariance
+    call on the sequences X: landmarks among the union of its inducing
+    tensors' and X's points."""
+    n_points = model.ind.Z.numel() // model.ind.Z.shape[-1] + (
+        X.shape[0] * X.shape[1])
+    return model.kern._lr_draws(torch.Generator("cuda").manual_seed(seed),
+                                n_points, torch.zeros(1, device="cuda"))
+
+
+def same_draws_check(model, X) -> dict:
+    """12a: two covariance calls with generators seeded alike give
+    bit-identical Grams, as do two calls with none (seed 0), and another
+    seed another Gram."""
+    xb = torch.as_tensor(X[:BATCH], device="cuda")
+
+    def covs(seed):
+        gen = None if seed is None else torch.Generator(
+            "cuda").manual_seed(seed)
+        with torch.no_grad():
+            return model.kern.K_tens_n_seq_covs(
+                model.ind.Z, xb, increments=True, return_levels=True,
+                generator=gen)
+
+    a, b, c, d = covs(SEED + 5), covs(SEED + 5), covs(None), covs(None)
+    same = (all(torch.equal(u, v) for u, v in zip(a, b))
+            and all(torch.equal(u, v) for u, v in zip(c, d)))
+    differ = not torch.equal(a[1], c[1])
+    print(f"  same generator, same Grams bit for bit: {same}; another "
+          f"seed, another Gram: {differ}")
+    check(same, "two calls with the same draws gave different Grams")
+    check(differ, "two seeds gave the same Kzx")
+    return dict(bit_identical=same, seeds_differ=differ)
+
+
+def drive_low_rank_model(T, ut, X, y):
+    """12a: the low-rank tensors model (``LOW_RANK``) at the benchmark
+    width, served on the six buckets, its repeated draws bit-identical;
+    (12b) its low levels held against f64 before it trains; then 30 steps
+    under the phase-2 mask; no kernel launched."""
+    model, ref, build = synthetic_setup(
+        ut, T, X, y, "tensors", fused="auto",
+        variant=("SignatureRBF", LOW_RANK), ref_device="cuda")
+    check(model.kern.low_rank, "the model's kernel is not low-rank")
+    pred, launches, requests = drive_serving(T, model, None, X, ())
+    check_no_launch(launches, "serving the low-rank model")
+    draws = same_draws_check(model, X)
+    print("  12b: levels 0-1 of the 12a model against f64")
+    low_levels = low_levels_check(model, ref, X)
+    del ref
+    train_launches, train = drive_training(T, model, X, y, {})
+    out = dict(serving_launches=launches, requests=requests, draws=draws,
+               low_levels=low_levels, training_launches=train_launches,
+               training=train)
+    return model, pred, out
+
+
+def low_levels_check(model, ref, X) -> list:
+    """12b: levels 0 and 1 of Kzz, Kzx and the full Kxx of the 12a model
+    (f32, the card) against its f64 path on the same draws: they depend on
+    the Nystrom features alone, not on an eigenvector's sign.  Each level
+    within MEAN_BOUND of max(its scale, 1)."""
+    xb = torch.as_tensor(X[:BATCH], device="cuda")
+    draws = lr_draws(model, xb, SEED + 6)
+    with torch.no_grad():
+        got = model.kern.K_tens_n_seq_covs(
+            model.ind.Z, xb, full_X_cov=True, increments=True,
+            return_levels=True, generator=draws)
+        want = ref.kern.K_tens_n_seq_covs(
+            ref.ind.Z, xb.double(), full_X_cov=True, increments=True,
+            return_levels=True, generator=draws.to(dtype=torch.float64))
+    rows = []
+    for name, g, w in zip(("Kzz", "Kzx", "Kxx"), got, want):
+        for lvl in (0, 1):
+            scale = max(float(w[lvl].abs().max()), 1.0)
+            err = float((g[lvl].double() - w[lvl]).abs().max()) / scale
+            rows.append(dict(gram=name, level=lvl, err=err, scale=scale))
+            print(f"  {name} level {lvl}: f32 vs f64 {err:.3e} of "
+                  f"max(scale, 1) = {scale:.3e}")
+            check(err <= MEAN_BOUND, f"{name} level {lvl} off f64 by {err}")
+    return rows
+
+
+def exact_setup(ut, T, X, y):
+    """12b: ``EXACT_IND`` incremental inducing tensors, M = EXACT_LEVELS,
+    exact low-rank features of ``EXACT_COMPONENTS`` components (d=14,
+    L=93, C=10), weights from the seed; the f32 model on the card, its f64
+    twin there too (torch ops) and ``build``."""
+    rng = np.random.RandomState(SEED + 7)
+    Z = ut.suggest_initial_inducing_tensors(
+        X, EXACT_LEVELS, EXACT_IND, labels=y, increments=True, seed=SEED)
+    ls = ut.suggest_initial_lengthscales(X, 1000, seed=SEED)
+    tree = None
+
+    def build(dtype, fused, device):
+        kern = T.kernels.SignatureRBF(
+            D, EXACT_LEVELS, lengthscales=ls, low_rank=True,
+            num_components=EXACT_COMPONENTS, sparsity="exact", fused=fused,
+            dtype=dtype, device=device)
+        ind = T.InducingTensors(Z, EXACT_LEVELS, increments=True,
+                                dtype=dtype, device=device)
+        model = T.SVGP(kern, ind, T.likelihoods.MultiClass(C), num_latent=C,
+                       num_data=N_TRAIN, device=device)
+        if tree is not None:
+            T.convert.load_jax_params(model, tree)
+        return model
+
+    model = build(torch.float32, "auto", "cuda")
+    tree = T.convert.to_numpy_tree(model)
+    tree["q_mu"] = rng.randn(EXACT_IND, C) * 0.5
+    tree["q_sqrt"] = (np.tril(rng.randn(C, EXACT_IND, EXACT_IND)) * 0.02
+                      + 0.5 * np.eye(EXACT_IND)[None])
+    T.convert.load_jax_params(model, tree)
+    return model, build(torch.float64, "auto", "cuda"), build
+
+
+def exact_model_check(T, ut, X, y) -> dict:
+    """12b: the exact-feature model, f32 on the card against its f64 path
+    on the same draws: the loss within GRAD_BOUND relative, every leaf's
+    gradient as phase 5 holds it, and the predictive means of one
+    minibatch as phase 3 holds them."""
+    model, ref, build = exact_setup(ut, T, X, y)
+    idx = next(T.training.MinibatchStream(N_TRAIN, BATCH, seed_or_rng=SEED))
+    xb = torch.as_tensor(X[idx], device="cuda")
+    draws = lr_draws(model, xb, SEED + 8)
+    grads = gradient_check(T, model, ref, build, X, y, ref_device="cuda",
+                           draws=draws)
+    loss_err = abs(grads["loss_card"] - grads["loss_f64_cpu"]) / abs(
+        grads["loss_f64_cpu"])
+    with torch.no_grad():
+        got = model.predict_y(xb, generator=draws)[0].double()
+        want = ref.predict_y(xb.double(), generator=draws.to(
+            dtype=torch.float64))[0]
+    err = float((got - want).abs().max())
+    top2 = torch.topk(want, 2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * MEAN_BOUND
+    same = torch.argmax(got, 1) == torch.argmax(want, 1)
+    print(f"  exact features: loss f32 vs f64 {loss_err:.3e} relative; "
+          f"means {err:.3e}; argmax agree {int(same.sum())}/{BATCH}")
+    check(loss_err <= GRAD_BOUND, f"exact model: loss off f64 by {loss_err}")
+    check(err <= MEAN_BOUND, f"exact model: means off f64 by {err}")
+    check(bool(same[decided].all()), "exact model: argmax differs from f64")
+    return dict(gradient_check=grads, loss_rel_err=loss_err, mean_err=err,
+                argmax_agree=int(same.sum()))
+
+
+def long_sequences(T) -> dict:
+    """12d: examples/low_rank_long_sequences.py through the port: low-rank
+    factors of N=10,000 random walks of L=1,000 steps (d=3, M=3, 96
+    components, rank bound 128) in 4 chunks of examples that share the
+    landmarks (96 of 64 walks' points, among the scaled points as the
+    kernel draws them) and every projection; the factor time (a second,
+    synchronized pass) and the implied Gram entries per second; then the
+    normalized low-rank Gram of the first 256 walks against the exact one,
+    ``K_blocked(method='pallas')`` (K5): max and mean error, no bound
+    (random walks are that example's stated worst case)."""
+    g = torch.Generator("cuda").manual_seed(SEED)
+    X = torch.cumsum(torch.randn((LONG_N, LONG_L, LONG_D), generator=g,
+                                 device="cuda"), dim=1) / np.sqrt(LONG_L)
+    ls = np.ones(LONG_D) * np.sqrt(LONG_D)
+    kern = T.kernels.SignatureRBF(
+        LONG_D, LONG_M, low_rank=True, num_components=LONG_C,
+        rank_bound=LONG_RB, lengthscales=ls, device="cuda")
+    with torch.no_grad():
+        cp = kern.constrain()
+        flat = kern._scale_sequences(cp, X[::LONG_N // 64]).reshape(
+            -1, LONG_D)
+        landmarks = flat[torch.randperm(flat.shape[0], generator=g,
+                                        device="cuda")[:LONG_C]]
+        draws = T.ops.low_rank.draw_low_rank(
+            g, None, num_components=LONG_C, rank_bound=LONG_RB,
+            num_levels=LONG_M, sparsity=kern.sparsity, dtype=torch.float32)
+        fmap = kern._lr_feature_map(cp, landmarks, draws)
+
+        def factors():
+            parts = [kern._K_seq_lr_feat(kern._scale_sequences(cp, c), fmap,
+                                         draws)
+                     for c in X.chunk(LONG_CHUNKS)]
+            return [torch.cat([p[m] for p in parts])
+                    for m in range(LONG_M + 1)]
+
+        factors()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        phis = factors()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        sub = [p[:LONG_BLOCK] for p in phis]
+        lvls = torch.stack([p @ p.T for p in sub])
+        dsq = torch.sqrt(torch.diagonal(lvls, dim1=1, dim2=2) + 1e-6)
+        K_lr = (lvls / (dsq[:, :, None] * dsq[:, None, :])).sum(0)
+        exact_kern = T.kernels.SignatureRBF(LONG_D, LONG_M, lengthscales=ls,
+                                            device="cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        exact = exact_kern.K_blocked(X[:LONG_BLOCK], method="pallas")
+        torch.cuda.synchronize()
+        exact_s = time.perf_counter() - t0
+        k5 = read_counts()["seq_fwd"]
+        err = (K_lr - exact).abs()
+    shapes = [tuple(p.shape) for p in phis]
+    out = dict(factor_s=seconds, entries_per_s=LONG_N ** 2 / seconds,
+               shapes=shapes, peak_gb=peak_gb, exact_s=exact_s,
+               k5_launches=k5, max_err=float(err.max()),
+               mean_err=float(err.mean()))
+    print(f"  factors {shapes} in {seconds:.3f} s ({out['entries_per_s']:.3e}"
+          f" implied Gram entries/s), peak {peak_gb:.2f} GiB; exact "
+          f"{LONG_BLOCK}x{LONG_BLOCK} Gram by K5 ({k5} launches) in "
+          f"{exact_s:.3f} s; normalized low-rank vs exact: max err "
+          f"{out['max_err']:.3f}, mean err {out['mean_err']:.3f}")
+    check(all(bool(torch.isfinite(p).all()) for p in phis),
+          "non-finite long-sequence factors")
+    check(k5 > 0, "the exact Gram did not launch K5")
+    return out
+
+
+def regression_targets(X):
+    """12e: a smooth function of each sequence plus noise, from the seed."""
+    rng = np.random.RandomState(SEED + 9)
+    drift = X[:, :, :3].sum(axis=(1, 2)) / np.sqrt(3 * X.shape[1])
+    y = np.tanh(drift) + 0.5 * np.sin(X[:, -1, 0])
+    return (y + 0.1 * rng.randn(len(X))).astype(np.float32)
+
+
+def gaussian_setup(ut, T, X, Yr):
+    """12e: Gaussian regression at the benchmark width: 500 incremental
+    inducing tensors (K1-K4 under ``fused='on'``), a ``Linear`` mean
+    function of the flattened (93 x 14) sequences, a trainable noise
+    variance, weights from the seed; the f64 twin on the card runs the
+    reference graphs (``fused='off'``, torch ops)."""
+    rng = np.random.RandomState(SEED + 10)
+    Z = ut.suggest_initial_inducing_tensors(X, LEVELS, N_IND,
+                                            increments=True, seed=SEED)
+    ls = ut.suggest_initial_lengthscales(X, 1000, seed=SEED)
+    tree = None
+
+    def build(dtype, fused, device):
+        at = dict(dtype=dtype, device=device)
+        model = T.SVGP(
+            T.kernels.SignatureRBF(D, LEVELS, lengthscales=ls, fused=fused,
+                                   **at),
+            T.InducingTensors(Z, LEVELS, increments=True, **at),
+            T.likelihoods.Gaussian(0.5, trainable=True, **at), num_latent=1,
+            num_data=N_TRAIN,
+            mean_function=T.mean_functions.Linear(L * D, **at),
+            device=device)
+        if tree is not None:
+            T.convert.load_jax_params(model, tree)
+        return model
+
+    model = build(torch.float32, "on", "cuda")
+    tree = T.convert.to_numpy_tree(model)
+    tree["q_mu"] = rng.randn(N_IND, 1) * 0.5
+    tree["q_sqrt"] = (np.tril(rng.randn(1, N_IND, N_IND)) * 0.02
+                      + 0.5 * np.eye(N_IND)[None])
+    tree["mean"]["A"] = rng.randn(L * D, 1) * 0.01
+    tree["mean"]["b"] = np.array([0.1])
+    T.convert.load_jax_params(model, tree)
+    return model, build(torch.float64, "off", "cuda"), build
+
+
+def samples_check(T, model, X) -> dict:
+    """12e: ``predict_f_samples`` of S = 4,096 at one minibatch: shape
+    (S, N, 1); the samples' mean and variance within 5 standard errors of
+    ``predict_f``'s, and with ``full_cov`` their covariance within 5 of
+    the jittered predictive covariance, entry by entry."""
+    xb = torch.as_tensor(X[:BATCH], device="cuda")
+    g = torch.Generator("cuda").manual_seed(SEED + 11)
+    with torch.no_grad():
+        mean, var = (t.double()[:, 0] for t in model.predict_f(xb))
+        s = model.predict_f_samples(xb, num_samples=SAMPLES, generator=g)
+        fmean, fcov = model.predict_f(xb, full_cov=True)
+        sf = model.predict_f_samples(xb, num_samples=SAMPLES, generator=g,
+                                     full_cov=True)
+    check(tuple(s.shape) == (SAMPLES, BATCH, 1) == tuple(sf.shape),
+          f"sample shapes {tuple(s.shape)}, {tuple(sf.shape)}")
+    s, sf = s.double()[:, :, 0], sf.double()[:, :, 0]
+    z_mean = float(((s.mean(0) - mean).abs()
+                    / torch.sqrt(var / SAMPLES)).max())
+    z_var = float(((s.var(0) - var).abs() / (
+        var * np.sqrt(2.0 / (SAMPLES - 1)))).max())
+    cov = fcov[0].double() + T.config.jitter() * torch.eye(
+        BATCH, dtype=torch.float64, device="cuda")
+    sd = torch.diagonal(cov)
+    z_fmean = float(((sf.mean(0) - fmean[:, 0].double()).abs()
+                     / torch.sqrt(sd / SAMPLES)).max())
+    se = torch.sqrt((sd[:, None] * sd[None, :] + cov ** 2) / SAMPLES)
+    z_cov = float(((torch.cov(sf.T) - cov).abs() / se).max())
+    print(f"  predict_f_samples (S={SAMPLES}): mean {z_mean:.2f} SE, "
+          f"variance {z_var:.2f} SE; full_cov: mean {z_fmean:.2f} SE, "
+          f"covariance {z_cov:.2f} SE (largest over entries)")
+    for what, z in (("mean", z_mean), ("variance", z_var),
+                    ("full_cov mean", z_fmean), ("covariance", z_cov)):
+        check(z <= SAMPLE_SE, f"sample {what} {z} standard errors off")
+    return dict(z_mean=z_mean, z_var=z_var, z_full_mean=z_fmean,
+                z_cov=z_cov)
+
+
+def drive_gaussian_model(T, ut, X):
+    """12e: the Gaussian regression model served (one length bucket, 93:
+    the mean function takes 93 x 14 inputs), every leaf's gradient held
+    against f64 (``lik/variance`` and ``mean/*`` among them), 30 steps
+    with K1-K4 once a step, and ``predict_f_samples``."""
+    Yr = regression_targets(X)
+    model, ref, build = gaussian_setup(ut, T, X, Yr)
+    pred, launches, requests = drive_serving(
+        T, model, ref, X, ("kzz_fwd", "kzx_fwd"), same_bucket=True,
+        ref_device="cuda", len_buckets=(L,), regression=True)
+    grads = gradient_check(T, model, ref, build, X, Yr, ref_device="cuda")
+    del ref
+    check({"lik/variance", "mean/A", "mean/b"} <= {
+        r["leaf"] for r in grads["leaves"]}, "a Gaussian leaf is missing")
+    train_launches, train = drive_training(
+        T, model, X, Yr, dict.fromkeys(("kzz_fwd", "kzx_fwd", "kzz_bwd",
+                                        "kzx_bwd"), 1))
+    out = dict(serving_launches=launches, requests=requests,
+               gradient_check=grads, training_launches=train_launches,
+               training=train, samples=samples_check(T, model, X))
+    return model, pred, Yr, out
+
+
+def run_phase12(T, ut, X, y):
+    """Phases 12a-12e; returns the models 12f times and the details."""
+    t0 = time.perf_counter()
+    print("phase 12: low-rank features and the rest of the model API")
+    print("  12a: the low-rank tensors model "
+          f"(num_components={LOW_RANK['num_components']}, "
+          f"rank_bound={LOW_RANK['rank_bound']})", flush=True)
+    lr_model, lr_pred, lr = drive_low_rank_model(T, ut, X, y)
+    print("  12b: the exact-feature model "
+          f"[{time.perf_counter() - T0:.1f} s]", flush=True)
+    exact = exact_model_check(T, ut, X, y)
+    print(f"  12c: the recipe with low_rank=True, {LR_RECIPE_IND} inducing "
+          f"tensors [{time.perf_counter() - T0:.1f} s]", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        recipe = [drive_recipe(T, Path(tmp), c, low_rank=True,
+                               num_inducing=LR_RECIPE_IND) for c in (C, 2)]
+    print("  12d: examples/low_rank_long_sequences.py's configuration "
+          f"[{time.perf_counter() - T0:.1f} s]", flush=True)
+    long_seq = long_sequences(T)
+    torch.cuda.empty_cache()
+    print("  12e: Gaussian regression with a Linear mean function "
+          f"[{time.perf_counter() - T0:.1f} s]", flush=True)
+    g_model, g_pred, Yr, gauss = drive_gaussian_model(T, ut, X)
+    details = dict(low_rank=lr, exact=exact, recipe=recipe,
+                   long_sequences=long_seq, gaussian=gauss,
+                   seconds=dict(checks=time.perf_counter() - t0))
+    return (lr_model, lr_pred, g_model, g_pred, Yr), details
+
+
+def time_phase12(T, X, y, models, details, card) -> dict:
+    """12f: request latency (median of 5 a bucket) and training steps/s
+    (median of 5 steps, one profiled: device ms, launches, busy share) of
+    the 12a and 12e models, as phase 11e measures them."""
+    print(f"phase 12f: times of the low-rank and Gaussian models ({card})")
+    t0 = time.perf_counter()
+    lr_model, lr_pred, g_model, g_pred, Yr = models
+    print("  low-rank tensors model:")
+    details["low_rank"].update(
+        request_latency=time_requests(lr_pred, X, reps=5, warm=1),
+        training_time=time_training(T, lr_model, X, y, reps=5, warm=2,
+                                    profiled=1))
+    print("  Gaussian regression model:")
+    details["gaussian"].update(
+        request_latency=time_requests(g_pred, X, reps=5, warm=1,
+                                      len_buckets=(L,)),
+        training_time=time_training(T, g_model, X, Yr, reps=5, warm=2,
+                                    profiled=1))
+    details["seconds"]["times"] = time.perf_counter() - t0
+    print(f"  phase 12: {details['seconds']['checks']:.1f} s checked, "
+          f"{details['seconds']['times']:.1f} s timed")
+    return details
 
 
 def main() -> None:
@@ -2378,6 +2837,23 @@ def main() -> None:
         (out_dir / "chip_smoke_bases.json").write_text(
             json.dumps(dict(card=card, bases=bases), indent=1))
         print(json.dumps({"card": card, "seconds": bases["seconds"]}))
+        return
+    if "--low-rank" in sys.argv[1:]:
+        # phase 12 alone, with the main library (K1-K5 in 12d and 12e);
+        # the details go to build/chip_smoke_low_rank.json
+        (lib, build_s), = build_libraries(_cuda_build, levels=(),
+                                          orders=()).values()
+        print(f"phase 1: built {lib.path.parent.name} in {build_s:.1f} s")
+        X, y = synthetic_data()
+        models, low_rank = run_phase12(T, ut, X, y)
+        low_rank = time_phase12(T, X, y, models, low_rank, card)
+        check("jax" not in sys.modules, "something imported jax")
+        out_dir = ROOT / "build"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_low_rank.json").write_text(json.dumps(
+            dict(card=card, build_s=build_s, low_rank=low_rank), indent=1))
+        print(json.dumps({"card": card, "build_s": build_s,
+                          "seconds": time.perf_counter() - T0}))
         return
     libs = build_libraries(_cuda_build)
     lib, build_s = libs[1]
@@ -2476,24 +2952,29 @@ def main() -> None:
     t11 = time.perf_counter()
     base_models = serve_and_train_bases(T, ut, X, y)
     t11 = time.perf_counter() - t11
+    low_rank_models, low_rank = run_phase12(T, ut, X, y)
     print(f"phase 4: times ({card})")
     ktimes = (time_kernels(ic, ut, X) + time_seq_kernels(sc, ic, Zs, X, ls)
               + time_extra_levels(ic, sc))
-    latency = time_requests(pred, X)
-    train_time = time_training(T, model, X, y)
+    latency = time_requests(pred, X, reps=5, warm=1)
+    train_time = time_training(T, model, X, y, reps=10, warm=3, profiled=2)
     print("  inducing sequences:")
-    s_latency = time_requests(spred, X)
-    s_train_time = time_training(T, smodel, X, y)
+    s_latency = time_requests(spred, X, reps=5, warm=1)
+    s_train_time = time_training(T, smodel, X, y, reps=10, warm=3,
+                                 profiled=2)
     print(f"  lagged width (num_lags={LAGS}, d2 = {D_LAG2}):")
     lag_times = time_lagged_kernels(T, ic, ut, X, y)
-    lag_train_time = time_training(T, lmodel, X, y)
+    lag_train_time = time_training(T, lmodel, X, y, reps=10, warm=3,
+                                   profiled=2)
     print(f"phase 9f: matern12 times ({card})")
     m12_times = time_m12_kernels(ic, sc, ut, X, Zs, ls)
-    m12_latency = time_requests(m12_pred, X)
-    m12_train_time = time_training(T, m12_model, X, y)
+    m12_latency = time_requests(m12_pred, X, reps=5, warm=1)
+    m12_train_time = time_training(T, m12_model, X, y, reps=5, warm=2,
+                                   profiled=1)
     print("  matern12, inducing sequences:")
-    m12_s_latency = time_requests(m12_spred, X)
-    m12_s_train_time = time_training(T, m12_smodel, X, y)
+    m12_s_latency = time_requests(m12_spred, X, reps=5, warm=1)
+    m12_s_train_time = time_training(T, m12_smodel, X, y, reps=5, warm=2,
+                                     profiled=1)
     print(f"phase 10e: order > 1 times ({card})")
     order_times = time_order_kernels(sc, ic, Zs, X, ls)
     order_models = {}
@@ -2503,9 +2984,12 @@ def main() -> None:
             f"order{LEVELS}_sequences": (o4_smodel, o4_spred,
                                          o4_sequences)}.items():
         print(f"  {name}:")
-        order_models[name] = dict(res, request_latency=time_requests(prd, X),
-                                  training_time=time_training(T, mdl, X, y))
+        order_models[name] = dict(
+            res, request_latency=time_requests(prd, X, reps=5, warm=1),
+            training_time=time_training(T, mdl, X, y, reps=5, warm=2,
+                                        profiled=1))
     bases = time_bases(T, X, y, base_models, card, t11)
+    low_rank = time_phase12(T, X, y, low_rank_models, low_rank, card)
     check("jax" not in sys.modules, "something imported jax")
 
     kernels = []
@@ -2600,7 +3084,7 @@ def main() -> None:
                        kernel_times=m12_times),
                    orders=dict(kernel_checks=order_checks,
                                kernel_times=order_times, **order_models),
-                   bases=bases,
+                   bases=bases, low_rank=low_rank,
                    kernel_times=ktimes, request_latency=latency,
                    training_time=train_time, kernels=kernels,
                    seconds=time.perf_counter() - T0)

@@ -23,7 +23,8 @@ from . import config, params  # noqa: F401
 from . import ops  # noqa: F401
 from . import convert, inducing, kernels, likelihoods, linalg  # noqa: F401
 from . import models, serving, training, utils  # noqa: F401
-from . import checkpoint, datasets, metrics, preprocessing  # noqa: F401
+from . import checkpoint, datasets, mean_functions, metrics  # noqa: F401
+from . import preprocessing  # noqa: F401
 from . import recipes  # noqa: F401
 from .inducing import InducingSequences, InducingTensors  # noqa: F401
 from .kernels import (  # noqa: F401

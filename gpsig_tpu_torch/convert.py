@@ -6,8 +6,8 @@ unchanged: ``load_jax_params`` copies each leaf of a ``gpsig_tpu``
 ``numpy.asarray`` on them) into the parameter of the same name, keeping the
 module's dtype and device; ``to_numpy_tree`` gives the tree back.
 ``named_leaves`` names each parameter by its ``/``-joined JAX path
-(``kern/variances``, ``ind/Z``, ``q_sqrt``), the names that
-``training``'s masks and optimizers select on.
+(``kern/variances``, ``ind/Z``, ``q_sqrt``, ``mean/A``, ``lik/variance``),
+the names that ``training``'s masks and optimizers select on.
 """
 
 from __future__ import annotations
@@ -18,11 +18,17 @@ import torch
 
 def named_leaves(model) -> dict:
     """{'/'-joined JAX path: parameter} of an SVGP, e.g. ``kern/variances``,
-    ``ind/Z``, ``q_mu``."""
+    ``ind/Z``, ``q_mu``, and a mean function's and a trainable
+    likelihood's (``mean/A``, ``lik/variance``)."""
     out = {f"kern/{n}": p for n, p in model.kern.named_parameters()}
     out.update({f"ind/{n}": p for n, p in model.ind.named_parameters()})
     out["q_mu"] = model.q_mu
     out["q_sqrt"] = model.q_sqrt
+    for prefix, module in (("mean", model.mean_function),
+                           ("lik", model.likelihood)):
+        if module is not None:
+            out.update({f"{prefix}/{n}": p
+                        for n, p in module.named_parameters()})
     return out
 
 

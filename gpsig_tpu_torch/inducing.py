@@ -9,6 +9,9 @@ The port of ``gpsig_tpu/inducing.py``:
   d)`` as inducing locations.  Its covariances are seq x seq Grams (K5/K6).
 * ``learn_weights`` adds a per-level mixing matrix W applied to levels
   1..M while level 0 passes through.
+
+``Kuu``, ``Kuf`` and ``Kuu_Kuf_Kff`` pass ``generator`` to a low-rank
+kernel (its draws; ``kernels.py``); the other kernels ignore it.
 """
 
 from __future__ import annotations
@@ -105,13 +108,25 @@ class InducingTensors(_SignatureInducing):
     def __len__(self):
         return self._Z_init.shape[1]
 
+    def Kuu(self, kern, *, jitter: float = 0.0, generator=None):
+        Kzz = self._gram(kern.K_tens(self.Z, increments=self.increments,
+                                     return_levels=True,
+                                     generator=generator))
+        return Kzz + jitter * torch.eye(len(self), dtype=Kzz.dtype,
+                                        device=Kzz.device)
+
+    def Kuf(self, kern, X, *, generator=None):
+        return self._cross(kern.K_tens_vs_seq(
+            self.Z, X, increments=self.increments, return_levels=True,
+            generator=generator))
+
     def Kuu_Kuf_Kff(self, kern, X, *, jitter: float = 0.0,
-                    full_f_cov: bool = False):
+                    full_f_cov: bool = False, generator=None):
         """Kzz, Kzx and Kxx (diagonal, or full with ``full_f_cov``) in one
         kernel call."""
         Kzz_lvls, Kzx_lvls, Kxx_lvls = kern.K_tens_n_seq_covs(
             self.Z, X, full_X_cov=full_f_cov, increments=self.increments,
-            return_levels=True,
+            return_levels=True, generator=generator,
         )
         return _jittered(self._gram(Kzz_lvls), self._cross(Kzx_lvls),
                          torch.sum(Kxx_lvls, dim=0), jitter, full_f_cov)
@@ -137,19 +152,22 @@ class InducingSequences(_SignatureInducing):
     def __len__(self):
         return self._Z_init.shape[0]
 
-    def Kuu(self, kern, *, jitter: float = 0.0):
-        Kzz = self._gram(kern.K(self.Z, return_levels=True))
+    def Kuu(self, kern, *, jitter: float = 0.0, generator=None):
+        Kzz = self._gram(kern.K(self.Z, return_levels=True,
+                                generator=generator))
         return Kzz + jitter * torch.eye(len(self), dtype=Kzz.dtype,
                                         device=Kzz.device)
 
-    def Kuf(self, kern, X):
-        return self._cross(kern.K(self.Z, X, return_levels=True))
+    def Kuf(self, kern, X, *, generator=None):
+        return self._cross(kern.K(self.Z, X, return_levels=True,
+                                  generator=generator))
 
     def Kuu_Kuf_Kff(self, kern, X, *, jitter: float = 0.0,
-                    full_f_cov: bool = False):
+                    full_f_cov: bool = False, generator=None):
         """Kzz, Kzx and Kxx (diagonal, or full with ``full_f_cov``) in one
         kernel call."""
         Kzz_lvls, Kzx_lvls, Kxx_lvls = kern.K_seq_n_seq_covs(
-            self.Z, X, full_X2_cov=full_f_cov, return_levels=True)
+            self.Z, X, full_X2_cov=full_f_cov, return_levels=True,
+            generator=generator)
         return _jittered(self._gram(Kzz_lvls), self._cross(Kzx_lvls),
                          torch.sum(Kxx_lvls, dim=0), jitter, full_f_cov)

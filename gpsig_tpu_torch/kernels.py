@@ -52,10 +52,20 @@ depend on the order and keeps K1/K2.
 
 ``K_blocked`` evaluates the seq x seq Gram over example tiles
 (``method='xla'``: the blocked torch path with the closed forms), or
-through K5 (``method='pallas'``, for the kernels' bases).  Outside the port
-so far -- low-rank features and the public ``K_tens`` / ``K_tens_vs_seq``
--- the module raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+through K5 (``method='pallas'``, for the kernels' bases).
+
+``low_rank=True`` replaces every covariance by inner products of low-rank
+feature maps (``ops/low_rank.py``, ``gpsig_tpu/kernels.py:540-591``):
+Nystrom features of the base kernel on ``num_components`` landmarks, and
+randomized Hadamard products of at most ``rank_bound`` features a level
+(``sparsity``).  It launches no kernel: JAX runs it through XLA, with no
+Pallas kernel either.  Every draw of one call -- the landmarks (from the
+union of both sides' points), the Nystrom jitter, each depth's projection
+-- is made once and serves both sides, so a cross Gram is an inner product
+of one feature map.  ``generator`` (a ``torch.Generator``, or a
+``low_rank.LowRankDraws`` holding the draws) makes them; None draws from a
+generator seeded with 0 on the inputs' device, created per call, as JAX's
+``PRNGKey(0)``.  ``K_blocked`` refuses a low-rank kernel, as JAX does.
 """
 
 from __future__ import annotations
@@ -68,6 +78,7 @@ from . import config as cfg
 from . import params as pm
 from .ops import base_kernels, gram, lags
 from .ops import inducing_cuda as ic
+from .ops import low_rank as low_rank_ops
 from .ops import signature as sig_ops
 from .ops import signature_cuda as sc
 
@@ -117,7 +128,9 @@ class SignatureKernel(nn.Module):
     def __init__(self, num_features: int, num_levels: int, *, order: int = 1,
                  normalization: bool = True, difference: bool = True,
                  variances=1.0, lengthscales=1.0, num_lags: int | None = None,
-                 low_rank: bool = False, base: str = "rbf",
+                 low_rank: bool = False, num_components: int = 50,
+                 rank_bound: int | None = None, sparsity: str = "sqrt",
+                 base: str = "rbf",
                  base_options: dict | None = None, fused: str = "auto",
                  fast_math="high", dtype=None, device=None,
                  generator: torch.Generator | None = None):
@@ -134,9 +147,21 @@ class SignatureKernel(nn.Module):
         else:
             raise ValueError("num_lags must be a nonnegative integer or None")
         if low_rank:
-            raise NotImplementedError(
-                "low-rank features are not ported yet: ROADMAP Queue 1, "
-                "item 5")
+            if self.order != 1:
+                raise NotImplementedError(
+                    "low-rank mode requires order == 1 "
+                    "(matches reference `kernels.py:59-60`)")
+            if sparsity not in low_rank_ops.SPARSITIES:
+                raise ValueError(f"unknown sparsity {sparsity!r}")
+            if num_components is None or num_components <= 0:
+                raise ValueError("num_components must be a positive integer")
+            if rank_bound is not None and rank_bound <= 0:
+                raise ValueError("rank_bound must be None or positive")
+        self.low_rank = bool(low_rank)
+        self.num_components = int(num_components)
+        self.rank_bound = (int(rank_bound) if rank_bound
+                           else self.num_components)
+        self.sparsity = sparsity
         self.normalization = bool(normalization)
         self.difference = bool(difference)
         base_kernels.get(base)
@@ -396,6 +421,90 @@ class SignatureKernel(nn.Module):
         return K_lvls * w.reshape((-1,) + (1,) * (K_lvls.ndim - 1))
 
     # ------------------------------------------------------------------
+    # low-rank feature maps (``gpsig_tpu/kernels.py:540-591, 805-810``)
+    # ------------------------------------------------------------------
+
+    def _lr_draws(self, generator, num_points: int | None,
+                  like: torch.Tensor):
+        """Every draw of one low-rank call, the landmarks among
+        ``num_points`` points: ``generator``'s own if it is a
+        ``LowRankDraws``, else drawn from it (None: seed 0 on ``like``'s
+        device, per call)."""
+        if isinstance(generator, low_rank_ops.LowRankDraws):
+            return generator.to(like.device)
+        if generator is None:
+            generator = torch.Generator(device=like.device).manual_seed(0)
+        return low_rank_ops.draw_low_rank(
+            generator, num_points, num_components=self.num_components,
+            rank_bound=self.rank_bound, num_levels=self.num_levels,
+            sparsity=self.sparsity, dtype=like.dtype).to(like.device)
+
+    def _lr_feature_map(self, cp: dict, landmarks, draws):
+        """Nystrom features on ``landmarks`` (C, d): one eigenbasis for
+        every point set the call maps."""
+        kern = self._base_kern(cp)
+        basis = low_rank_ops.nystrom_basis(landmarks, kern, draws.jitter,
+                                           cfg.jitter())
+        return lambda P: low_rank_ops.nystrom_features(P, kern, landmarks,
+                                                       basis)
+
+    def _lr_maps(self, cp: dict, generator, *point_sets):
+        """The feature map and the draws of one call, the landmarks drawn
+        from the union of ``point_sets`` (each (n, d))
+        (``_joint_nystrom_samples``)."""
+        points = (point_sets[0] if len(point_sets) == 1
+                  else torch.cat(point_sets, dim=0))
+        draws = self._lr_draws(generator, points.shape[0], points)
+        landmarks = torch.index_select(points, 0, draws.landmarks)
+        return self._lr_feature_map(cp, landmarks, draws), draws
+
+    def _K_seq_lr_feat(self, X, feature_map, draws):
+        """(M+1) factors (N, C_m) of the sequences X (N, L, d)."""
+        N, L, d = X.shape
+        U = feature_map(X.reshape(N * L, d)).reshape(N, L, -1)
+        return low_rank_ops.signature_kern_lr_feature(
+            U, self.num_levels, draws.projections, self.sparsity,
+            difference=self.difference)
+
+    def _K_tens_lr_feat(self, Z, increments: bool, feature_map, draws):
+        """(M+1) factors (n_Z, C_m) of packed inducing tensors; with
+        ``increments`` each slot's feature is that of its second point
+        less its first."""
+        U = feature_map(Z.reshape(-1, Z.shape[-1]))
+        if increments:
+            U = U.reshape(*Z.shape[:2], 2, -1)
+            U = U[:, :, 1] - U[:, :, 0]
+        else:
+            U = U.reshape(*Z.shape[:2], -1)
+        return low_rank_ops.tensor_kern_lr_feature(
+            U, self.num_levels, draws.projections, self.sparsity)
+
+    def _lr_seq_factors(self, cp: dict, generator, *Xs):
+        """Factors of each sequence set, on landmarks from their union."""
+        fmap, draws = self._lr_maps(
+            cp, generator, *(X.reshape(-1, X.shape[-1]) for X in Xs))
+        return [self._K_seq_lr_feat(X, fmap, draws) for X in Xs]
+
+    def _lr_tens_seq_factors(self, cp: dict, generator, Z, X,
+                             increments: bool):
+        """Factors of the inducing tensors and of the sequences, on
+        landmarks from the union of their points."""
+        fmap, draws = self._lr_maps(cp, generator, Z.reshape(-1, Z.shape[-1]),
+                                    X.reshape(-1, X.shape[-1]))
+        return (self._K_tens_lr_feat(Z, increments, fmap, draws),
+                self._K_seq_lr_feat(X, fmap, draws))
+
+    @staticmethod
+    def _lr_gram(Phi_lvls, Phi2_lvls=None):
+        Phi2_lvls = Phi_lvls if Phi2_lvls is None else Phi2_lvls
+        return torch.stack([P @ P2.T for P, P2 in zip(Phi_lvls, Phi2_lvls)])
+
+    @staticmethod
+    def _lr_diag(Phi_lvls):
+        return torch.stack([torch.sum(torch.square(P), dim=-1)
+                            for P in Phi_lvls])
+
+    # ------------------------------------------------------------------
     # public covariance API
     # ------------------------------------------------------------------
 
@@ -412,44 +521,55 @@ class SignatureKernel(nn.Module):
         """sqrt of the jittered diagonal a cross Gram is normalized by."""
         return torch.sqrt(self._K_seq_diag(cp, X) + cfg.jitter())
 
-    def _data_cov(self, cp: dict, X, full: bool):
-        """The data side's level stack -- the full Gram, or its diagonal --
-        normalized and level-scaled, and the sqrt-diagonal the cross Gram
-        is divided by (None without normalization)."""
+    def _data_cov(self, cp: dict, full: bool, gram, diag, n: int):
+        """The data side's level stack -- the full Gram ``gram()``, or its
+        diagonal ``diag()`` -- normalized and level-scaled, and the
+        sqrt-diagonal the cross Gram is divided by (None without
+        normalization)."""
         if full:
-            K_lvls, d = self._K_seq(cp, X), None
+            K_lvls, d = gram(), None
             if self.normalization:
                 K_lvls, d = self._normalize_sym(K_lvls)
             return self._level_scale(cp, K_lvls), d
         if not self.normalization:
-            return self._level_scale(cp, self._K_seq_diag(cp, X)), None
-        sig_var = (cp["sigma"] * cp["variances"]).to(X.dtype)
-        return sig_var[:, None].expand(-1, X.shape[0]), self._diag_sqrt(cp, X)
+            return self._level_scale(cp, diag()), None
+        d = torch.sqrt(diag() + cfg.jitter())
+        sig_var = (cp["sigma"] * cp["variances"]).to(d.dtype)
+        return sig_var[:, None].expand(-1, n), d
 
     def _finalize(self, K_lvls, return_levels: bool):
         return K_lvls if return_levels else torch.sum(K_lvls, dim=0)
 
-    def K(self, X, X2=None, *, return_levels: bool = False):
+    def K(self, X, X2=None, *, return_levels: bool = False, generator=None):
         """Signature kernel matrix between sequences (N1, N2), or its
         (M+1, N1, N2) levels.  A symmetric Gram is normalized by its own
         jittered diagonal, a cross Gram by the two diagonals
-        (``_K_seq_diag``)."""
+        (``_K_seq_diag``, or the low-rank factors')."""
         cp = self.constrain()
         X = self._scale_sequences(cp, _as_sequences(X, self.num_features))
         if X2 is None:
-            K_lvls = self._K_seq(cp, X)
+            K_lvls = (self._lr_gram(*self._lr_seq_factors(cp, generator, X))
+                      if self.low_rank else self._K_seq(cp, X))
             if self.normalization:
                 K_lvls, _ = self._normalize_sym(K_lvls)
+            return self._finalize(self._level_scale(cp, K_lvls),
+                                  return_levels)
+        X2 = self._scale_sequences(cp, _as_sequences(X2, self.num_features))
+        if self.low_rank:
+            Phi, Phi2 = self._lr_seq_factors(cp, generator, X, X2)
+            K_lvls = self._lr_gram(Phi, Phi2)
+            if self.normalization:
+                d1, d2 = (torch.sqrt(self._lr_diag(P) + cfg.jitter())
+                          for P in (Phi, Phi2))
         else:
-            X2 = self._scale_sequences(
-                cp, _as_sequences(X2, self.num_features))
             K_lvls = self._K_seq(cp, X, X2)
             if self.normalization:
                 d1, d2 = self._diag_sqrt(cp, X), self._diag_sqrt(cp, X2)
-                K_lvls = K_lvls / (d1[:, :, None] * d2[:, None, :])
+        if self.normalization:
+            K_lvls = K_lvls / (d1[:, :, None] * d2[:, None, :])
         return self._finalize(self._level_scale(cp, K_lvls), return_levels)
 
-    def Kdiag(self, X, *, return_levels: bool = False):
+    def Kdiag(self, X, *, return_levels: bool = False, generator=None):
         """Diagonal of ``K(X)``: exactly sigma * variances per level when
         normalized."""
         cp = self.constrain()
@@ -458,7 +578,9 @@ class SignatureKernel(nn.Module):
             sig_var = cp["sigma"] * cp["variances"]
             lvls = sig_var[:, None].expand(-1, X.shape[0])
             return self._finalize(lvls.to(X.dtype), return_levels)
-        K_lvls = self._K_seq_diag(cp, self._scale_sequences(cp, X))
+        X = self._scale_sequences(cp, X)
+        K_lvls = (self._lr_diag(*self._lr_seq_factors(cp, generator, X))
+                  if self.low_rank else self._K_seq_diag(cp, X))
         return self._finalize(self._level_scale(cp, K_lvls), return_levels)
 
     def K_blocked(self, X, X2=None, *, block_size: int = 16,
@@ -478,6 +600,8 @@ class SignatureKernel(nn.Module):
                       do.
         ``fast_math`` is accepted; every value means full f32.
         """
+        if self.low_rank:
+            raise ValueError("use K() for the low-rank path")
         if method == "pallas" and self.base not in ic.SUPPORTED_BASES:
             method = "xla"
         if method not in ("xla", "pallas"):
@@ -509,19 +633,65 @@ class SignatureKernel(nn.Module):
                 K_lvls = K_lvls / (d1[:, :, None] * d2[:, None, :])
         return self._finalize(self._level_scale(cp, K_lvls), return_levels)
 
+    def K_tens(self, Z, *, increments: bool = False,
+               return_levels: bool = False, generator=None):
+        """Covariance of inducing tensors (n_Z, n_Z), unnormalized, or its
+        levels (``gpsig_tpu/kernels.py:833``): K1 for the kernels' bases."""
+        cp = self.constrain()
+        Z = self._scale_tensors(cp, Z)
+        if self.low_rank:
+            fmap, draws = self._lr_maps(cp, generator,
+                                        Z.reshape(-1, Z.shape[-1]))
+            K_lvls = self._lr_gram(self._K_tens_lr_feat(Z, increments, fmap,
+                                                        draws))
+        else:
+            K_lvls = self._K_tens(cp, Z, increments)
+        return self._finalize(self._level_scale(cp, K_lvls), return_levels)
+
+    def K_tens_vs_seq(self, Z, X, *, increments: bool = False,
+                      return_levels: bool = False, generator=None):
+        """Cross-covariance of inducing tensors and sequences (n_Z, N), or
+        its levels, normalized on the sequences' side
+        (``gpsig_tpu/kernels.py:846``): K3 for the kernels' bases."""
+        cp = self.constrain()
+        Z = self._scale_tensors(cp, Z)
+        X = self._scale_sequences(cp, _as_sequences(X, self.num_features))
+        if self.low_rank:
+            Phi_Z, Phi_X = self._lr_tens_seq_factors(cp, generator, Z, X,
+                                                     increments)
+            Kzx_lvls = self._lr_gram(Phi_Z, Phi_X)
+            diag = lambda: self._lr_diag(Phi_X)  # noqa: E731
+        else:
+            Kzx_lvls = self._K_tens_vs_seq(cp, Z, X, increments)
+            diag = lambda: self._K_seq_diag(cp, X)  # noqa: E731
+        if self.normalization:
+            Kzx_lvls = Kzx_lvls / torch.sqrt(diag() + cfg.jitter())[:, None]
+        return self._finalize(self._level_scale(cp, Kzx_lvls), return_levels)
+
     def K_tens_n_seq_covs(self, Z, X, *, full_X_cov: bool = False,
                           increments: bool = False,
-                          return_levels: bool = False):
+                          return_levels: bool = False, generator=None):
         """Kzz, Kzx and Kxx (its diagonal, or the full Gram with
-        ``full_X_cov``) in one call, sharing the scaled inputs and the Kxx
-        normalization between Kzx and Kxx."""
+        ``full_X_cov``) in one call, sharing the scaled inputs, the Kxx
+        normalization between Kzx and Kxx, and a low-rank call's draws."""
         cp = self.constrain()
         Z = self._scale_tensors(cp, Z)
         X_scaled = self._scale_sequences(
             cp, _as_sequences(X, self.num_features))
-        Kzz_lvls = self._K_tens(cp, Z, increments)
-        Kzx_lvls = self._K_tens_vs_seq(cp, Z, X_scaled, increments)
-        Kxx_lvls, d = self._data_cov(cp, X_scaled, full_X_cov)
+        if self.low_rank:
+            Phi_Z, Phi_X = self._lr_tens_seq_factors(cp, generator, Z,
+                                                     X_scaled, increments)
+            Kzz_lvls = self._lr_gram(Phi_Z)
+            Kzx_lvls = self._lr_gram(Phi_Z, Phi_X)
+            Kxx_lvls, d = self._data_cov(
+                cp, full_X_cov, lambda: self._lr_gram(Phi_X),
+                lambda: self._lr_diag(Phi_X), X_scaled.shape[0])
+        else:
+            Kzz_lvls = self._K_tens(cp, Z, increments)
+            Kzx_lvls = self._K_tens_vs_seq(cp, Z, X_scaled, increments)
+            Kxx_lvls, d = self._data_cov(
+                cp, full_X_cov, lambda: self._K_seq(cp, X_scaled),
+                lambda: self._K_seq_diag(cp, X_scaled), X_scaled.shape[0])
         if d is not None:
             Kzx_lvls = Kzx_lvls / d[:, None, :]
         out = (self._level_scale(cp, Kzz_lvls),
@@ -531,7 +701,7 @@ class SignatureKernel(nn.Module):
         return tuple(torch.sum(o, dim=0) for o in out)
 
     def K_seq_n_seq_covs(self, X, X2, *, full_X2_cov: bool = False,
-                         return_levels: bool = False):
+                         return_levels: bool = False, generator=None):
         """Kxx, Kxx2 and Kx2x2 (its diagonal, or the full Gram with
         ``full_X2_cov``) for inducing sequences X against data X2: the
         symmetric Grams normalized by their own jittered diagonals, the
@@ -539,12 +709,21 @@ class SignatureKernel(nn.Module):
         cp = self.constrain()
         Xs = self._scale_sequences(cp, _as_sequences(X, self.num_features))
         X2s = self._scale_sequences(cp, _as_sequences(X2, self.num_features))
-        Kxx_lvls = self._K_seq(cp, Xs)
-        Kxx2_lvls = self._K_seq(cp, Xs, X2s)
+        if self.low_rank:
+            Phi, Phi2 = self._lr_seq_factors(cp, generator, Xs, X2s)
+            Kxx_lvls, Kxx2_lvls = self._lr_gram(Phi), self._lr_gram(Phi, Phi2)
+            gram2 = lambda: self._lr_gram(Phi2)  # noqa: E731
+            diag2 = lambda: self._lr_diag(Phi2)  # noqa: E731
+        else:
+            Kxx_lvls = self._K_seq(cp, Xs)
+            Kxx2_lvls = self._K_seq(cp, Xs, X2s)
+            gram2 = lambda: self._K_seq(cp, X2s)  # noqa: E731
+            diag2 = lambda: self._K_seq_diag(cp, X2s)  # noqa: E731
         if self.normalization:
             Kxx_lvls, d1 = self._normalize_sym(Kxx_lvls)
             Kxx2_lvls = Kxx2_lvls / d1[:, :, None]
-        Kx2_lvls, d2 = self._data_cov(cp, X2s, full_X2_cov)
+        Kx2_lvls, d2 = self._data_cov(cp, full_X2_cov, gram2, diag2,
+                                      X2s.shape[0])
         if d2 is not None:
             Kxx2_lvls = Kxx2_lvls / d2[:, None, :]
         out = (self._level_scale(cp, Kxx_lvls),

@@ -1,7 +1,12 @@
-"""Likelihoods for classification (``gpsig_tpu/likelihoods.py``), for
-prediction and training: the reference recipe takes ``Bernoulli`` for two
-classes and ``MultiClass`` otherwise (``train_gpsig.py:90-95``).
+"""Likelihoods (``gpsig_tpu/likelihoods.py``), for prediction and training:
+the reference recipe takes ``Bernoulli`` for two classes and
+``MultiClass`` otherwise (``train_gpsig.py:90-95``); ``Gaussian`` is for
+regression.
 
+* ``Gaussian``: noise variance fixed, or trainable (``trainable=True``):
+  then the raw variance is the leaf ``lik/variance`` under the positive
+  transform, as in the JAX pytree.  Its expectations and predictions are
+  in closed form.  ``Y`` is ``(N, P)``.
 * ``Bernoulli``: the probit inverse link clipped away from {0, 1} by 1e-3
   (GPflow's), one latent; ``variational_expectations`` by 20-point
   Gauss-Hermite quadrature, predictions in closed form.  Labels ``Y`` are
@@ -11,8 +16,6 @@ classes and ``MultiClass`` otherwise (``train_gpsig.py:90-95``).
   candidate latent, with 100 points by default (the JAX package's
   documented divergence from GPflow's 20).  Labels ``Y`` are ``(N, 1)``
   class indices.
-
-The Gaussian likelihood is not ported yet (ROADMAP Queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import config as cfg
+from . import params as pm
+
 
 def _gh_points(n: int, dtype, device):
     x, w = np.polynomial.hermite.hermgauss(n)
@@ -32,6 +38,64 @@ def _gh_points(n: int, dtype, device):
 
 def _normal_cdf(x):
     return 0.5 * (1.0 + torch.special.erf(x / math.sqrt(2.0)))
+
+
+class Gaussian(nn.Module):
+    """Gaussian likelihood, its noise variance fixed or trainable.
+
+    With ``trainable=True`` the module holds the raw variance as its
+    parameter ``variance`` (at ``dtype`` on ``device``, the card unless
+    given), the model's leaf ``lik/variance``."""
+
+    def __init__(self, variance=1.0, num_latent: int = 1,
+                 trainable: bool = False, *, dtype=None, device=None):
+        super().__init__()
+        # a float, or a tensor for a bound likelihood (``bind``)
+        self.init_variance = (variance if isinstance(variance, torch.Tensor)
+                              else float(variance))
+        self.num_latent = int(num_latent)
+        self.trainable = bool(trainable)
+        for name, value in self.init_params(dtype, device).items():
+            self.register_parameter(name, nn.Parameter(value))
+
+    def init_params(self, dtype=None, device=None) -> dict:
+        """Fresh raw leaves: {} when the variance is fixed."""
+        if not self.trainable:
+            return {}
+        return {"variance": pm.raw_init(
+            self.init_variance, "positive", dtype or cfg.default_float(),
+            device or cfg.default_device())}
+
+    def variance_of(self, params: dict | None = None):
+        """The noise variance: of the raw leaves ``params`` if given, else
+        of this module's own leaf (trainable) or the fixed value."""
+        if not self.trainable:
+            return self.init_variance
+        return pm.positive((params or {"variance": self.variance})[
+            "variance"])
+
+    def bind(self, params: dict) -> "Gaussian":
+        """A fixed-variance likelihood at the variance of the raw leaves
+        ``params`` (gradients flow to them)."""
+        if not self.trainable or not params:
+            return self
+        return Gaussian(self.variance_of(params), self.num_latent)
+
+    def variational_expectations(self, Fmu, Fvar, Y):
+        """(N, P) E_q[log N(y | f, variance)]."""
+        v = self.variance_of()
+        return (-0.5 * torch.log(2.0 * math.pi * torch.as_tensor(
+            v, dtype=Fmu.dtype, device=Fmu.device))
+            - 0.5 * (torch.square(Y - Fmu) + Fvar) / v)
+
+    def predict_mean_and_var(self, Fmu, Fvar):
+        return Fmu, Fvar + self.variance_of()
+
+    def predict_log_density(self, Fmu, Fvar, Y):
+        """(N,) log p(y*|x*) under the predictive."""
+        v = Fvar + self.variance_of()
+        return torch.sum(-0.5 * torch.log(2.0 * math.pi * v)
+                         - 0.5 * torch.square(Y - Fmu) / v, dim=-1)
 
 
 class Bernoulli(nn.Module):

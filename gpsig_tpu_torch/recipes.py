@@ -51,9 +51,6 @@ def train_gpsig_classifier(
     killed run restarts from the last checkpoint of the phase it died in
     and continues the same trajectory.
     """
-    if low_rank:
-        raise NotImplementedError(
-            "low-rank features are not ported yet: ROADMAP Queue 1, item 5")
     device = torch.device(device or cfg.default_device())
     print(f"==== GPSig on {dataset} ====")
     X_train, y_train, X_val, y_val, X_test, y_test = datasets.load_dataset(
@@ -84,7 +81,7 @@ def train_gpsig_classifier(
     l_init = gp_utils.suggest_initial_lengthscales(
         X_train, num_samples=1000, seed=seed)
     kern = kernels.SignatureRBF(num_features, num_levels, lengthscales=l_init,
-                                num_lags=num_lags, **at)
+                                num_lags=num_lags, low_rank=low_rank, **at)
 
     if num_classes == 2:
         lik = likelihoods.Bernoulli()

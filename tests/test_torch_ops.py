@@ -53,16 +53,18 @@ def test_base_kernels(base, dtype):
 
 
 def test_unported_bases_name_their_roadmap_item():
-    """Every base is ported now; the paths still outside the port name
-    their ROADMAP item: low-rank features and mean functions."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SignatureKernel(2, 2, low_rank=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SVGP(SignatureKernel(2, 2, device="cpu"),
-             InducingTensors(np.zeros((3, 4, 2, 2)), 2, increments=True,
-                             device="cpu"),
-             MultiClass(3), num_latent=3, mean_function=object(),
-             device="cpu")
+    """Every base, low-rank features and mean functions are ported now;
+    what is left raises as the JAX package does: low-rank features at
+    order > 1, ``predict_f_samples`` without a generator (JAX's without a
+    key), an unknown base."""
+    with pytest.raises(NotImplementedError, match="order == 1"):
+        SignatureKernel(2, 3, order=2, low_rank=True, device="cpu")
+    model = SVGP(SignatureKernel(2, 2, device="cpu"),
+                 InducingTensors(np.zeros((3, 4, 2, 2)), 2, increments=True,
+                                 device="cpu"),
+                 MultiClass(3), num_latent=3, device="cpu")
+    with pytest.raises(ValueError, match="torch.Generator"):
+        model.predict_f_samples(torch.zeros(1, 4, 2), num_samples=2)
     with pytest.raises(ValueError, match="Unknown base"):
         tbk.get("nope")
 

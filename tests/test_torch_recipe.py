@@ -88,9 +88,11 @@ def test_recipe_files_checkpoints_and_resume(tmp_path):
 
 def test_recipe_with_lags_and_what_it_refuses(tmp_path):
     """``num_lags=1`` (the reference runner's) trains the lag leaves through
-    all four phases; ``low_rank`` names the ROADMAP item that ports it."""
+    all four phases; a dataset that is not on disk raises as the JAX
+    loader does (``low_rank=True`` is ported: test_torch_low_rank_svgp)."""
     res = _run(tmp_path, "multiclass_tensors", num_lags=1)
     assert all(np.isfinite(v) for v in res.values())
     assert 0.0 <= res["test_acc"] <= 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 5"):
-        _run(tmp_path, "multiclass_tensors", low_rank=True)
+    with pytest.raises(FileNotFoundError, match="NoSuchSet"):
+        recipes.train_gpsig_classifier("NoSuchSet", data_dir=str(tmp_path),
+                                       device="cpu")

@@ -120,8 +120,8 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="no seq x seq kernel"):
         sc.seq_fwd(V, V, V, V, num_levels=M_LVL, base="cosine",
                    difference=True)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        SignatureKernel(2, M_LVL, low_rank=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="order == 1"):
+        SignatureKernel(2, M_LVL, order=2, low_rank=True, device="cpu")
     meta = torch.zeros(3, 5, 4, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         sc.seq_fwd(meta, meta, meta, meta, num_levels=M_LVL, base="rbf",

@@ -106,18 +106,20 @@ def test_fused_auto_matches_off_and_on_raises_on_cpu():
 
 
 def test_outside_the_slice_raises():
-    """Every base and ``K_blocked`` are ported now; the paths still outside
-    the port name their ROADMAP item: low-rank features (the kernel and
-    the recipe's option) and mean functions."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.recipes.train_gpsig_classifier("SyntheticLibras", low_rank=True,
-                                         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.kernels.SignatureRBF(D, M, low_rank=True)
-    _, _, tmodel, _ = _setup(np.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.SVGP(tmodel.kern, tmodel.ind, tmodel.likelihood, num_latent=C,
-               mean_function=object(), device="cpu")
+    """Every base, ``K_blocked``, low-rank features and mean functions are
+    ported now; what is left raises as the JAX package does: low-rank
+    features at order > 1, an unknown sparsity, and ``K_blocked`` on a
+    low-rank kernel."""
+    with pytest.raises(NotImplementedError, match="order == 1"):
+        T.kernels.SignatureRBF(D, M, order=2, low_rank=True, device="cpu")
+    with pytest.raises(ValueError, match="unknown sparsity"):
+        T.kernels.SignatureRBF(D, M, low_rank=True, sparsity="dense",
+                               device="cpu")
+    _, _, tmodel, Xq = _setup(np.float64)
+    kern = T.kernels.SignatureRBF(D, M, low_rank=True, dtype=torch.float64,
+                                  device="cpu")
+    with pytest.raises(ValueError, match="use K"):
+        kern.K_blocked(torch.from_numpy(Xq))
 
 
 def test_converter_round_trip():
